@@ -4,9 +4,13 @@ setup(
     name="style_transfer_tpu",
     version="0.1.0",
     description="TPU-native optimization-based neural style transfer (JAX/XLA/Pallas)",
-    packages=find_packages(include=["style_transfer_tpu", "style_transfer_tpu.*"]),
+    packages=find_packages(include=[
+        "style_transfer_tpu", "style_transfer_tpu.*",
+        "style_transfer_tpu_torch", "style_transfer_tpu_torch.*",
+    ]),
     package_data={
         "style_transfer_tpu": ["srgb.icc", "web/static/*"],
+        "style_transfer_tpu_torch": ["srgb.icc", "csrc/*.cu"],
     },
     install_requires=[
         "aiohttp",
@@ -20,6 +24,7 @@ setup(
         "console_scripts": [
             "style-transfer-tpu=style_transfer_tpu.cli:main",
             "style_transfer_tpu=style_transfer_tpu.cli:main",
+            "style-transfer-tpu-torch=style_transfer_tpu_torch.cli:main",
         ],
     },
     python_requires=">=3.10",

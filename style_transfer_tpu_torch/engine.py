@@ -1,0 +1,385 @@
+"""StyleTransfer engine: the sqrt(2) pyramid over the Adam step.
+
+Port of ``style_transfer_tpu/engine.py`` for the Adam optimizer: the same
+``StyleTransfer``/``stylize`` surface and defaults, the same per-iteration
+``STIterate`` callback contract, host-side ``numpy.random.RandomState``
+inits (bit-identical to the JAX package's), per-scale target capture with
+multi-style blending over (mean, second raw moment), and the Adam-moment
+warm-start at each scale crossing.
+
+Tensors are NCHW on ``device``. ``get_image_tensor`` returns the JAX
+package's ``(H, W, 3)`` float array; ``get_image`` a PIL image or a uint16
+array. Everything runs in FP32: on CUDA, ``stylize`` turns TF32 off for
+matmuls and cuDNN convolutions, because the Newton-Schulz square root
+diverges under single-pass low-precision products and parity with the
+reference needs FP32 convolutions.
+"""
+
+import contextlib
+import math
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from PIL import Image
+
+from .models import weights as W
+from .models.vgg import extract_features
+from .ops import losses as L
+from .step import (
+    AdamState,
+    LoopState,
+    StepConfig,
+    adam_init,
+    build_loss_terms_fn,
+    make_adam_runner,
+)
+from .utils.ema import ema_get, ema_init
+from .utils.scales import align_size, gen_scales, size_to_fit
+from .utils.trace import STIterate, peak_device_ram, reset_peak_device_ram
+
+__all__ = ["StyleTransfer", "tensor_to_image"]
+
+
+def _pil_to_nchw(image: Image.Image, size=None, device="cpu"):
+    """PIL RGB -> (1, 3, H, W) f32 in [0,1] on ``device``, optional bicubic
+    resize. The uint8 bytes are uploaded and converted there (exact)."""
+    if size is not None and image.size != tuple(size):
+        image = image.resize(tuple(size), Image.BICUBIC)
+    arr = np.asarray(image.convert("RGB"), dtype=np.uint8)
+    x = torch.from_numpy(arr.copy()).to(device)
+    return (x.permute(2, 0, 1)[None].to(torch.float32) / 255.0).contiguous()
+
+
+def _resize_image(x, hw, method: str = "bicubic"):
+    """Resize NCHW ``x`` to (h, w) as the reference does at each crossing
+    (``F.interpolate``, align_corners=False, no antialias); the JAX package's
+    ``ops/resize.py`` exists to equal this call."""
+    return F.interpolate(x, size=tuple(hw), mode=method, align_corners=False)
+
+
+def _scale_adam(opt: AdamState, hw) -> AdamState:
+    """Warm-start Adam moments at a new resolution (reference :285-295):
+    first moment resized bicubic, second moment bilinear then clamped >= 0."""
+    mu = _resize_image(opt.mu, hw, "bicubic")
+    nu = torch.clamp(_resize_image(opt.nu, hw, "bilinear"), min=0.0)
+    return AdamState(mu=mu, nu=nu, count=opt.count)
+
+
+@contextlib.contextmanager
+def _fp32_math(device):
+    """Full-FP32 matmuls and cuDNN convolutions on CUDA for the duration.
+
+    TF32 (cuDNN's default for float32 convolutions) keeps about three
+    decimal digits: the Newton-Schulz chain diverges under such single-pass
+    products, and the trunk would leave parity with the FP32 reference."""
+    if device.type != "cuda":
+        yield
+        return
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+class StyleTransfer:
+    """Optimization-based neural style transfer in PyTorch.
+
+    Args:
+      device: torch device or name ('cuda:0', 'cpu').
+      pooling: 'max' | 'average' | 'l2'.
+      weights: path to VGG-19 weights (.npz native or torchvision .pth), or a
+        dict of HWIO arrays; None resolves via models/weights.py.
+      style_loss: 'w2' (default, reference behavior) or 'gram'.
+      content_loss: 'mse' (reference default) or 'scaled'.
+      w2_grad: 'trace' (the only mode ported so far).
+      callback_chunk: iterations per host sync. Telemetry is emitted per
+        iteration; wall-times within a chunk are interpolated.
+    """
+
+    def __init__(
+        self,
+        device="cuda:0",
+        pooling: str = "max",
+        *,
+        weights=None,
+        style_loss: str = "w2",
+        content_loss: str = "mse",
+        w2_grad: str = "trace",
+        callback_chunk: int = 50,
+    ):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"device {device!r} requested but CUDA is not available")
+        if pooling not in ("max", "average", "l2"):
+            raise ValueError(f"unknown pooling mode {pooling!r}")
+        self.pooling = pooling
+        # Validates the loss modes now (w2_grad='lyap' raises NotImplementedError).
+        StepConfig(style_loss=style_loss, content_loss=content_loss, w2_grad=w2_grad)
+        self.style_loss = style_loss
+        self.content_loss = content_loss
+        self.w2_grad = w2_grad
+        self.callback_chunk = int(callback_chunk)
+
+        # Default layer configuration (Gatys et al. 2015 taps, reference
+        # weighting, ref :315-322).
+        self.content_layers = [22]
+        self.style_layers = [1, 6, 11, 20, 29]
+        sw = [256, 64, 16, 4, 1]
+        total = sum(abs(w) for w in sw)
+        self.style_layer_weights = [w / total for w in sw]
+
+        if isinstance(weights, dict):
+            params, self.weights_source = weights, "caller-provided"
+        else:
+            params, self.weights_source = W.resolve_params(weights)
+        self.params = W.params_from_jax(params, self.device)
+
+        self.image = None  # (1, 3, H, W) f32 current iterate
+        self.average = None  # EMAState
+        self._last_cfg = self._last_consts = None
+        self._rng = np.random.RandomState(0)
+
+    # ------------------------------------------------------------------ API
+
+    def seed(self, seed: int):
+        self._rng = np.random.RandomState(seed)
+
+    def get_image_tensor(self):
+        """Current averaged iterate as an (H, W, 3) f32 ndarray in [0, 1]."""
+        if self.average is None:
+            return None
+        img = ema_get(self.average)[0].permute(1, 2, 0)
+        return np.clip(img.detach().cpu().numpy(), 0.0, 1.0)
+
+    def get_image(self, image_type: str = "pil"):
+        if self.average is None:
+            return None
+        return tensor_to_image(self.get_image_tensor(), image_type)
+
+    def loss_terms(self):
+        """Per-term weighted losses of the current iterate (diagnostic;
+        reference SumLoss(verbose=True) parity). Returns {name: float}."""
+        if self.image is None or self._last_cfg is None:
+            return None
+        terms = build_loss_terms_fn(self._last_cfg)
+        with _fp32_math(self.device), torch.no_grad():
+            out = terms(self.image, self.params, self._last_consts)
+        return {k: float(v) for k, v in out.items()}
+
+    def canvas(self, content_size, scale, align=None):
+        """(w, h) optimization canvas for ``scale``; ``align`` > 1 rounds
+        both dims to that multiple (None or 1: exact reference sizing)."""
+        cw, ch = size_to_fit(content_size, scale, scale_up=True)
+        if align is not None and align > 1:
+            return align_size((cw, ch), align)
+        return (cw, ch)
+
+    # ------------------------------------------------------------ internals
+
+    def _init_image(self, init, content_image, style_images, style_weights, hw):
+        ch, cw = hw
+        if init == "content":
+            return _pil_to_nchw(content_image, (cw, ch), self.device)
+        if init == "gray":
+            x = self._rng.uniform(size=(1, ch, cw, 3)).astype(np.float32)
+            return self._nhwc_to_device(x / 255.0 + 0.5)
+        if init == "uniform":
+            x = self._rng.uniform(size=(1, ch, cw, 3)).astype(np.float32)
+            return self._nhwc_to_device(x)
+        if init == "normal":
+            return self._nhwc_to_device(
+                _trunc_normal(self._rng, (1, ch, cw, 3), 0.5, 0.25))
+        if init == "style_stats":
+            mean = np.zeros(3, np.float64)
+            var = np.zeros(3, np.float64)
+            for img, w in zip(style_images, style_weights):
+                arr = np.asarray(img.convert("RGB"), dtype=np.float64) / 255.0
+                mean += arr.mean(axis=(0, 1)) * w
+                var += arr.var(axis=(0, 1), ddof=1) * w
+            chans = [
+                _trunc_normal(self._rng, (1, ch, cw, 1), mean[c],
+                              math.sqrt(max(var[c], 0.0)))
+                for c in range(3)
+            ]
+            return self._nhwc_to_device(np.concatenate(chans, axis=-1))
+        raise ValueError(
+            "init must be one of 'content', 'gray', 'uniform', 'normal', 'style_stats'"
+        )
+
+    def _nhwc_to_device(self, arr):
+        """Host (1, H, W, 3) array (the RandomState draw order) -> NCHW."""
+        x = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.float32))
+        return x.permute(0, 3, 1, 2).contiguous().to(self.device)
+
+    @torch.no_grad()
+    def _capture_targets(self, content, style_images, style_weights, scale,
+                         style_scale_fac, style_size, cfg):
+        """Per-scale content/style targets (once per scale, FP32)."""
+        content_feats = extract_features(
+            self.params, content, self.content_layers, pooling=self.pooling)
+        consts = {
+            "content": {l: content_feats[l] for l in self.content_layers},
+            "style": {},
+        }
+        blended = {}
+        for img, wgt in zip(style_images, style_weights):
+            if style_size is None:
+                sw, sh = size_to_fit(img.size, round(scale * style_scale_fac))
+            else:
+                sw, sh = size_to_fit(img.size, style_size)
+            print(f"Processing style image ({sw}x{sh})...")
+            style = _pil_to_nchw(img, (sw, sh), self.device)
+            feats = extract_features(
+                self.params, style, self.style_layers, pooling=self.pooling)
+            for layer in self.style_layers:
+                mean, srm = L.w2_moments(feats[layer])
+                stats = (mean, srm) if cfg.style_loss == "w2" else (srm,)
+                contrib = [s * wgt for s in stats]
+                if layer not in blended:
+                    blended[layer] = contrib
+                else:
+                    blended[layer] = [b + c for b, c in zip(blended[layer], contrib)]
+        for layer in self.style_layers:
+            if cfg.style_loss == "w2":
+                mean, srm = blended[layer]
+                consts["style"][layer] = L.w2_target(
+                    mean, srm, cfg.w2_eps, cfg.sqrtm_iters)
+            else:
+                consts["style"][layer] = blended[layer][0]
+        return consts
+
+    # --------------------------------------------------------------- stylize
+
+    def stylize(
+        self,
+        content_image,
+        style_images,
+        *,
+        style_weights=None,
+        content_weight: float = 0.015,
+        tv_weight: float = 2.0,
+        optimizer: str = "adam",
+        min_scale: int = 128,
+        end_scale: int = 512,
+        iterations: int = 500,
+        initial_iterations: int = 1000,
+        step_size: float = 0.02,
+        avg_decay: float = 0.99,
+        init: str = "content",
+        style_scale_fac: float = 1.0,
+        style_size: int = None,
+        align: int = None,
+        callback=None,
+    ):
+        if optimizer != "adam":
+            raise NotImplementedError(
+                f"optimizer {optimizer!r} is not ported yet, see ROADMAP")
+        with _fp32_math(self.device):
+            min_scale = min(min_scale, end_scale)
+            content_weights = [content_weight / len(self.content_layers)] * len(
+                self.content_layers)
+            if style_weights is None:
+                style_weights = [1 / len(style_images)] * len(style_images)
+            else:
+                total = sum(abs(w) for w in style_weights)
+                style_weights = [w / total for w in style_weights]
+            if len(style_images) != len(style_weights):
+                raise ValueError("style_images and style_weights must have the same length")
+
+            scales = gen_scales(min_scale, end_scale)
+            cw, ch = self.canvas(content_image.size, scales[0], align)
+            self.image = self._init_image(
+                init, content_image, style_images, style_weights, (ch, cw))
+
+            opt_state = None
+            for scale in scales:
+                cw, ch = self.canvas(content_image.size, scale, align)
+                content = _pil_to_nchw(content_image, (cw, ch), self.device)
+                self.image = torch.clamp(_resize_image(self.image, (ch, cw)), 0.0, 1.0)
+                self.average = ema_init(self.image, avg_decay)
+
+                cfg = StepConfig(
+                    content_layers=tuple(self.content_layers),
+                    style_layers=tuple(self.style_layers),
+                    content_weights=tuple(content_weights),
+                    style_layer_weights=tuple(self.style_layer_weights),
+                    tv_weight=tv_weight,
+                    style_loss=self.style_loss,
+                    content_loss=self.content_loss,
+                    w2_grad=self.w2_grad,
+                    pooling=self.pooling,
+                    step_size=step_size,
+                    avg_decay=avg_decay,
+                )
+                actual_its = initial_iterations if scale == scales[0] else iterations
+
+                print(f"Processing content image ({cw}x{ch})...")
+                consts = self._capture_targets(
+                    content, style_images, style_weights, scale, style_scale_fac,
+                    style_size, cfg)
+                self._last_cfg, self._last_consts = cfg, consts
+
+                runner = make_adam_runner(cfg)
+                if opt_state is None:
+                    opt_state = adam_init(self.image)
+                else:
+                    opt_state = _scale_adam(opt_state, (ch, cw))
+                state = LoopState(image=self.image, opt=opt_state, ema=self.average)
+
+                reset_peak_device_ram(self.device)
+                done = 0
+                t_prev = time.time()
+                while done < actual_its:
+                    n = min(self.callback_chunk, actual_its - done)
+                    state, losses_dev = runner(self.params, consts, state, n)
+                    losses = losses_dev.cpu().numpy().astype(np.float64)  # one sync
+                    self.image, self.average = state.image, state.ema
+                    t_now = time.time()
+                    if callback is not None:
+                        ram = peak_device_ram(self.device)
+                        for k in range(n):
+                            callback(STIterate(
+                                w=cw, h=ch, i=done + k + 1, i_max=actual_its,
+                                loss=float(losses[k]),
+                                time=t_prev + (t_now - t_prev) * (k + 1) / n,
+                                gpu_ram=ram,
+                            ))
+                    t_prev = t_now
+                    done += n
+
+                opt_state = state.opt
+                # Each new scale starts from the previous scale's averaged
+                # iterate (ref :495-497).
+                self.image = torch.clamp(ema_get(state.ema), 0.0, 1.0)
+                self.average = state.ema
+        return self.get_image()
+
+
+def tensor_to_image(arr, image_type: str = "pil"):
+    """(H, W, 3) [0,1] float array -> PIL / uint16 ndarray (reference
+    get_image semantics, :335-347)."""
+    arr = np.clip(np.asarray(arr), 0.0, 1.0)
+    if arr.ndim == 4:
+        arr = arr[0]
+    if image_type.lower() == "pil":
+        return Image.fromarray(np.uint8(np.round(arr * 255.0)))
+    if image_type.lower() == "np_uint16":
+        return np.uint16(np.round(arr * 65535.0))
+    raise ValueError("image_type must be 'pil' or 'np_uint16'")
+
+
+def _trunc_normal(rng, shape, mean, std, lo=0.0, hi=1.0):
+    """Truncated normal in [lo, hi] via rejection (host-side init only)."""
+    if std <= 0:
+        return np.full(shape, np.clip(mean, lo, hi), np.float32)
+    out = rng.normal(mean, std, size=shape)
+    bad = (out < lo) | (out > hi)
+    while bad.any():
+        out[bad] = rng.normal(mean, std, size=int(bad.sum()))
+        bad = (out < lo) | (out > hi)
+    return out.astype(np.float32)

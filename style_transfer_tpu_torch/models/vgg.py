@@ -1,0 +1,121 @@
+"""VGG-19 feature extractor at reference semantics (NCHW, FP32).
+
+Port of ``style_transfer_tpu/models/vgg.py::extract_features`` without its
+TPU layout variants: a plain function over an explicit parameter dict of
+OIHW kernels (see ``weights.params_from_jax``).
+
+* layer numbering = torchvision ``features`` indices (default taps
+  [1,6,11,20,29] style / [22] content);
+* ImageNet normalization of sRGB [0,1] inputs;
+* conv1_1 replicate-padded, the other convs zero-padded;
+* max/average/L2 pooling with activation rescale {1, 2, 0.78};
+* the raw input rides along as ``feats[INPUT]`` (key -1) for the TV loss;
+* minimum-input-size guard of 2^(#pools <= last tapped layer).
+
+Tensors here are NCHW; the JAX package's are NHWC, so tests comparing the
+two transpose at the boundary.
+"""
+
+import functools
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+
+from ..ops.pooling import POOLING_SCALES, pool2x2, replicate_pad2d
+from .weights import CONV_CHANNELS, CONV_INDICES, POOL_INDICES
+
+__all__ = [
+    "INPUT",
+    "IMAGENET_MEAN",
+    "IMAGENET_STD",
+    "min_input_size",
+    "feature_shape",
+    "normalize",
+    "extract_features",
+]
+
+# Key for the raw (pre-normalization) input image in the feats dict.
+INPUT = -1
+
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+
+_CONV_SET = frozenset(CONV_INDICES)
+_POOL_SET = frozenset(POOL_INDICES)
+
+
+def min_input_size(layers: Sequence[int]) -> int:
+    """2^(number of pooling layers at or before the last tapped layer)."""
+    last = max(layers)
+    size = 1
+    for p in POOL_INDICES:
+        if last < p:
+            break
+        size *= 2
+    return size
+
+
+def feature_shape(layer: int, h: int, w: int):
+    """(h, w, c) of the activation tapped at ``layer`` for an h x w input
+    (the JAX package's order) — pools floor-halve, convs preserve."""
+    pools = sum(1 for p in POOL_INDICES if p <= layer)
+    conv_idxs = [i for i in CONV_INDICES if i <= layer]
+    c = CONV_CHANNELS[conv_idxs[-1]][1] if conv_idxs else 3
+    for _ in range(pools):
+        h, w = h // 2, w // 2
+    return h, w, c
+
+
+@functools.lru_cache(maxsize=None)
+def _imagenet_stats(device, dtype):
+    """(1, 3, 1, 1) mean and std, copied to ``device`` once: a host-to-device
+    copy inside the step would synchronize the stream every iteration."""
+    return tuple(torch.tensor(v, dtype=dtype).view(1, 3, 1, 1).to(device)
+                 for v in (IMAGENET_MEAN, IMAGENET_STD))
+
+
+def normalize(x):
+    mean, std = _imagenet_stats(x.device, x.dtype)
+    return (x - mean) / std
+
+
+def extract_features(params, image, layers: Sequence[int], pooling: str = "max"):
+    """Run the VGG-19 trunk up to the last requested layer.
+
+    Args:
+      params: dict of ``conv{i}_kernel`` (OIHW) / ``conv{i}_bias`` tensors.
+      image: NCHW float image in [0, 1] (sRGB).
+      layers: torchvision feature indices to tap (sorted set semantics).
+      pooling: 'max' | 'average' | 'l2'.
+
+    Returns:
+      dict mapping ``INPUT`` (-1) -> the raw image and each tapped index ->
+      its NCHW activation.
+    """
+    layers = sorted(set(int(l) for l in layers))
+    last = layers[-1]
+    h, w = image.shape[2:4]
+    mins = min_input_size(layers)
+    if min(h, w) < mins:
+        raise ValueError(f"Input is {h}x{w} but must be at least {mins}x{mins}")
+    pool_scale = POOLING_SCALES[pooling]
+    feats = {INPUT: image}
+    x = normalize(image)
+    wanted = set(layers)
+    for i in range(last + 1):
+        if i in _CONV_SET:
+            kernel, bias = params[f"conv{i}_kernel"], params[f"conv{i}_bias"]
+            if i == 0:  # conv1_1: replicate padding (reference :38-39)
+                x = F.conv2d(replicate_pad2d(x, 1), kernel, bias)
+            else:
+                x = F.conv2d(x, kernel, bias, padding=1)
+        elif i in _POOL_SET:
+            x = pool2x2(x, pooling)
+            if pooling != "max":
+                x = x * pool_scale
+        else:
+            x = F.relu(x)
+        if i in wanted:
+            feats[i] = x
+    return feats

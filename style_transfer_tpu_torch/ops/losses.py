@@ -1,0 +1,165 @@
+"""Loss functions for optimization-based style transfer (NCHW, FP32).
+
+Port of ``style_transfer_tpu/ops/losses.py``. Feature maps are NCHW here
+(the JAX package's are NHWC; tests transpose at the boundary); statistics
+(means, Gram / second-raw-moment matrices) live in channel space.
+
+* ``scaled_mse``   — MSE scaled so its gradient L1 norm is ~1.
+* ``content_mse``  — plain MSE against fixed target features.
+* ``content_scaled`` — ScaledMSE content loss.
+* ``gram_matrix`` / ``gram_loss`` — Gram style loss, per-pixel-count
+  normalization.
+* ``w2_target`` / ``w2_loss`` / ``w2_losses_batched`` — Wasserstein-2 style
+  loss on feature distributions N(mean, cov); targets are kept as (mean,
+  second raw moment), which combine linearly across style images.
+* ``tv_loss``      — L2 total variation, nine-point stencil on a
+  replicate-padded image.
+
+Every matmul and einsum here is full FP32: on CUDA the callers run with
+``allow_tf32`` off, because the covariance feeds a Newton-Schulz square root
+that diverges under single-pass low-precision products.
+"""
+
+from typing import NamedTuple
+
+import torch
+
+from .pooling import replicate_pad2d
+from .sqrtm import sqrtm_eig, sqrtm_ns_lyap
+
+__all__ = [
+    "scaled_mse",
+    "content_mse",
+    "content_scaled",
+    "gram_matrix",
+    "gram_loss",
+    "W2Target",
+    "w2_moments",
+    "moments_to_cov",
+    "w2_target",
+    "w2_loss",
+    "w2_losses_batched",
+    "tv_loss",
+]
+
+
+def scaled_mse(x, target, eps: float = 1e-8):
+    """MSE scaled such that its gradient L1 norm is approximately 1."""
+    diff = x - target
+    return torch.sum(diff * diff) / (torch.sum(torch.abs(diff)) + eps)
+
+
+def content_mse(x, target):
+    """Plain MSE content loss (the one the reference engine uses)."""
+    diff = x - target
+    return torch.mean(diff * diff)
+
+
+def content_scaled(x, target, eps: float = 1e-8):
+    """ScaledMSE content loss (reference ContentLoss)."""
+    return scaled_mse(x, target, eps)
+
+
+def _srm_outer(feats):
+    """(N, C, H, W) -> (N, C, C) sum over pixels of f f^T."""
+    f = feats.flatten(2)
+    return f @ f.transpose(1, 2)
+
+
+def gram_matrix(feats):
+    """Gram matrix of NCHW features normalized by pixel count (the
+    reference's ``mat @ mat.T / (H*W)``). Returns (N, C, C)."""
+    h, w = feats.shape[2:4]
+    return _srm_outer(feats) / (h * w)
+
+
+def gram_loss(feats, target_gram, eps: float = 1e-8):
+    return scaled_mse(gram_matrix(feats), target_gram, eps)
+
+
+class W2Target(NamedTuple):
+    """Per-layer W2 style target: N(mean, cov) plus its precomputed sqrt."""
+
+    mean: torch.Tensor  # (N, C)
+    cov: torch.Tensor  # (N, C, C), already + eps*I
+    cov_sqrt: torch.Tensor  # (N, C, C)
+
+
+def w2_moments(feats):
+    """Mean (N, C) and second raw moment (N, C, C) of NCHW features."""
+    h, w = feats.shape[2:4]
+    mean = torch.mean(feats, dim=(2, 3))
+    srm = _srm_outer(feats) / (h * w)
+    return mean, srm
+
+
+def _eye_like(x):
+    return torch.eye(x.shape[-1], dtype=x.dtype, device=x.device).expand_as(x)
+
+
+def moments_to_cov(mean, srm, eps: float = 1e-4):
+    """(mean, srm) -> covariance + eps*I (shared by loss and target paths)."""
+    cov = srm - torch.einsum("nc,nd->ncd", mean, mean)
+    return cov + _eye_like(cov) * eps
+
+
+def _trace(m):
+    return torch.diagonal(m, dim1=-2, dim2=-1).sum(-1)
+
+
+def w2_target(mean, srm, eps: float = 1e-4, sqrtm_iters: int = 12) -> W2Target:
+    """Finalize a blended (mean, srm) pair into a W2Target.
+
+    The target square root uses the eigendecomposition (|eigenvalue|
+    semantics): blends with negative style weights can make the blended
+    covariance indefinite, where Newton-Schulz diverges. ``sqrtm_iters`` is
+    kept for API parity with the JAX package."""
+    del sqrtm_iters
+    cov = moments_to_cov(mean, srm, eps)
+    return W2Target(mean=mean, cov=cov, cov_sqrt=sqrtm_eig(cov))
+
+
+def w2_loss(feats, target: W2Target, eps: float = 1e-4, sqrtm_iters: int = 12):
+    """W2(N(m1,C1), N(m2,C2))^2 = |m1-m2|^2 + tr(C1 + C2 - 2 (C2^½ C1 C2^½)^½),
+    with the reference's mean-instead-of-sum reductions."""
+    mean, srm = w2_moments(feats)
+    cov = moments_to_cov(mean, srm, eps)
+    mean_diff = torch.mean((mean - target.mean) ** 2)
+    inner = target.cov_sqrt @ (cov @ target.cov_sqrt)
+    sqrt_term = sqrtm_ns_lyap(inner, sqrtm_iters)
+    cov_diff = _trace(target.cov + cov - 2.0 * sqrt_term) / cov.shape[-1]
+    return mean_diff + torch.mean(cov_diff)
+
+
+def w2_losses_batched(means, covs, target: W2Target, sqrtm_iters: int = 12,
+                      sqrtm_fn=None, trace_sqrtm_fn=None):
+    """Per-element W2 losses for a stacked group of layers with equal C.
+
+    Args: means (G, C); covs (G, C, C) already +eps*I; target fields stacked
+    along G. Returns (G,) losses. With ``trace_sqrtm_fn`` the sqrt term is
+    computed as a trace directly (analytic ½·A^{-1/2} backward); otherwise
+    ``sqrtm_fn`` (default: the Lyapunov-backward NS) gives the full matrix.
+    """
+    mean_diff = torch.mean((means - target.mean) ** 2, dim=-1)
+    inner = target.cov_sqrt @ (covs @ target.cov_sqrt)
+    if trace_sqrtm_fn is not None:
+        tr_sqrt = trace_sqrtm_fn(inner, sqrtm_iters)
+        cov_diff = (_trace(target.cov + covs) - 2.0 * tr_sqrt) / covs.shape[-1]
+    else:
+        sqrt_term = (sqrtm_fn or sqrtm_ns_lyap)(inner, sqrtm_iters)
+        cov_diff = _trace(target.cov + covs - 2.0 * sqrt_term) / covs.shape[-1]
+    return mean_diff + cov_diff
+
+
+def tv_loss(image):
+    """L2 total variation, nine-point stencil, NCHW input.
+
+    Axis-aligned neighbor diffs weighted 1/3, diagonal diffs 1/12, total x2.
+    """
+    x = replicate_pad2d(image, 1)
+    c = x[:, :, 1:-1, 1:-1]
+    d1 = torch.mean((x[:, :, 1:-1, 2:] - c) ** 2) / 3.0
+    d2 = torch.mean((x[:, :, 2:, 1:-1] - c) ** 2) / 3.0
+    d3 = torch.mean((x[:, :, 1:, 1:] - x[:, :, :-1, :-1]) ** 2) / 12.0
+    d4 = torch.mean((x[:, :, 1:, :-1] - x[:, :, :-1, 1:]) ** 2) / 12.0
+    return 2.0 * (d1 + d2 + d3 + d4)

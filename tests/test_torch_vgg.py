@@ -1,0 +1,94 @@
+"""PyTorch port: VGG-19 trunk and pooling against the JAX package.
+
+The JAX trunk is NHWC and the port's NCHW, so features are transposed at
+the boundary. Both run in float32 with the same ``random_params(0)``.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from style_transfer_tpu.models import vgg as JV
+from style_transfer_tpu.models.weights import random_params
+from style_transfer_tpu_torch.models import vgg as TV
+from style_transfer_tpu_torch.models.weights import params_from_jax
+from style_transfer_tpu_torch.ops.pooling import pool2x2
+
+torch.set_num_threads(2)
+
+PARAMS = random_params(0)
+TAPS = (1, 6, 11, 20, 22, 29)
+# 40x56 keeps 2x3 pixels at layer 29 (four pools), the deepest tap.
+H, W = 40, 56
+
+
+@pytest.fixture(scope="module")
+def tparams():
+    return params_from_jax(PARAMS)
+
+
+def _image(seed=0):
+    return np.random.RandomState(seed).uniform(size=(1, H, W, 3)).astype(np.float32)
+
+
+def _to_nchw(x):
+    return torch.from_numpy(np.ascontiguousarray(x.transpose(0, 3, 1, 2)))
+
+
+@pytest.mark.parametrize("pooling", ["max", "average", "l2"])
+def test_taps_match_jax(pooling, tparams):
+    img = _image()
+    jf = JV.extract_features({k: jnp.asarray(v) for k, v in PARAMS.items()},
+                             jnp.asarray(img), TAPS, pooling=pooling,
+                             compute_dtype=None)
+    with torch.no_grad():
+        tf = TV.extract_features(tparams, _to_nchw(img), TAPS, pooling=pooling)
+    np.testing.assert_array_equal(tf[TV.INPUT].numpy().transpose(0, 2, 3, 1), img)
+    for layer in TAPS:
+        j = np.asarray(jf[layer])
+        t = tf[layer].numpy().transpose(0, 2, 3, 1)
+        assert t.shape == j.shape == (1, *TV.feature_shape(layer, H, W))
+        # 1e-4 of the tap's max: both sum 3x3xC FP32 products in their own
+        # order through up to 13 convs (measured at most 1.2e-6, max pooling
+        # at layer 20).
+        err = np.abs(t - j).max() / np.abs(j).max()
+        assert err < 1e-4, (layer, err)
+
+
+def test_image_gradient_matches_jax(tparams):
+    img = _image(1)
+    layers = (11, 22)
+
+    def jloss(x):
+        f = JV.extract_features({k: jnp.asarray(v) for k, v in PARAMS.items()},
+                                x, layers, pooling="max", compute_dtype=None)
+        return sum(jnp.sum(f[l]) for l in layers)
+
+    jg = np.asarray(jax.grad(jloss)(jnp.asarray(img)))
+    x = _to_nchw(img).requires_grad_(True)
+    f = TV.extract_features(tparams, x, layers, pooling="max")
+    (tg,) = torch.autograd.grad(sum(f[l].sum() for l in layers), x)
+    tg = tg.numpy().transpose(0, 2, 3, 1)
+    # Same 1e-4-of-max ceiling as the forward taps (measured 3.1e-7).
+    err = np.abs(tg - jg).max() / np.abs(jg).max()
+    assert err < 1e-4, err
+
+
+def test_l2_pool_zero_window_gradient_is_zero():
+    x = torch.zeros(1, 2, 4, 4)
+    x[0, 0, 2:, 2:] = torch.tensor([[1.0, -2.0], [0.5, 3.0]])
+    x.requires_grad_(True)
+    y = pool2x2(x, "l2")
+    np.testing.assert_allclose(y[0, 0, 1, 1].item(), np.sqrt(1 + 4 + 0.25 + 9), rtol=1e-6)
+    (g,) = torch.autograd.grad(y.sum(), x)
+    assert torch.isfinite(g).all()
+    assert (g[0, 1] == 0).all() and (g[0, 0, :2, :2] == 0).all()
+    assert (g[0, 0, 2:, 2:] != 0).all()
+
+
+def test_min_size_guard():
+    with pytest.raises(ValueError, match="at least 16x16"):
+        TV.extract_features(params_from_jax(PARAMS), torch.zeros(1, 3, 15, 40), (29,))
+    assert TV.min_input_size((29,)) == JV.min_input_size((29,)) == 16
