@@ -8,22 +8,35 @@ each of which exits non-zero on failure:
 
 1. setup: versions, the card's name and power limit, and the build of the
    CUDA kernels from the checkout's sources (timed);
-2. kernel against plain version: the coupled Newton-Schulz kernel against its
-   plain PyTorch version at the W2 loss's group shapes, a ragged shape and a
-   rank-deficient case, on inputs formed as in the loss (C_t^½·C·C_t^½ from
-   random features): tr(Y) to rtol 1e-4, Z to 1e-3 of max|Z|, the autograd
-   gradient to 1e-3 of its max, and both versions timed with CUDA events;
-3. card against CPU: the same 128 px, 10-iteration run on cuda and on cpu,
-   losses to rtol 1e-3;
+2. kernels against plain versions, at the W2 loss's group shapes, a ragged
+   shape and a rank-deficient case, on inputs formed as in the loss
+   (C_t^½·C·C_t^½ from random features), each kernel and its plain version
+   timed with CUDA events beside the kernel's bound:
+   - the coupled NS kernel (B1): tr(Y) to rtol 1e-4, Z to 1e-3 of max|Z|,
+     the trace autograd gradient to 1e-3 of its max;
+   - the NS forward kernel (B2): Y to 1e-4 of max|Y|;
+   - the Lyapunov backward kernel (B3), on the plain NS square root of the
+     input with the loss's own gradient -(2w/C)·I and with a random one: Q
+     to 1e-3 of max|Q|; the ``SqrtmNSLyap`` autograd gradient against the
+     plain ``sqrtm_ns_lyap`` gradient to 1e-3 of its max;
+3. card against CPU: the same 128 px, 10-iteration run on cuda and on cpu
+   for (adam, trace), (adam, lyap) and (lbfgs, lyap), losses to rtol 1e-3;
 4. the main path through the CLI: a 640x480 content and a 512x512 style PNG
    through ``style_transfer_tpu_torch.cli.main`` over the pyramid
    128 -> 512 (5 scales, 20 iterations each), with finite decreasing losses,
-   a 512x384 output, and exactly 4 groups x 100 iterations of kernel
-   launches.
+   a 512x384 output, and exactly 4 groups x 100 iterations of B1 launches;
+5. the reference-flavour path through the CLI: the same pyramid with
+   ``--w2-grad lyap``, under Adam and under ``--optimizer lbfgs``, each with
+   the checks of phase 4 and exactly 400 launches each of B2 and B3 and none
+   of B1;
+6. steady state of the step at 512x384 for (adam, trace), (adam, lyap) and
+   (lbfgs, lyap): ms/iter, peak memory, and from ``torch.profiler`` the
+   device's busy share and the NS kernels' time per iteration.
 
 Everything runs in FP32 (TF32 off for matmuls and cuDNN). The weights are
 the deterministic He-normal ``random_params(0)``. The last stdout line is
-``{"ok": true, "device": {...}}``; the line before it lists the kernels.
+``{"ok": true, "device": {...}}``; the line before it lists the kernels, the
+one before that the card's name and power limit.
 """
 
 import json
@@ -38,9 +51,24 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 TAPS = {1: 64, 6: 128, 11: 256, 20: 512, 29: 512}
 ITERS = 12
+LAYER_WEIGHTS = {1: 256 / 341, 6: 64 / 341, 11: 16 / 341, 20: 4 / 341, 29: 1 / 341}
 KERNEL_RTOL_TRACE = 1e-4
 KERNEL_TOL_Z = 1e-3
+KERNEL_TOL_Y = 1e-4
+KERNEL_TOL_Q = 1e-3
 CPU_RTOL = 1e-3
+# Published H100 SXM peaks: FP32 outside the tensor cores, and HBM3.
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+SRC = "style_transfer_tpu_torch/csrc/ns_sqrtm.cu"
+PALLAS = "style_transfer_tpu/ops/pallas/ns_sqrtm.py"
+# name -> (FP32 products of 2C^3 per matrix, C x C matrices read + written,
+# the TPU kernel it replaces)
+KERNELS = {
+    "ns_sqrtm_yz": (3 * ITERS, 3, f"{PALLAS}:73"),
+    "ns_sqrtm": (3 * ITERS - 1, 2, f"{PALLAS}:57"),
+    "lyap_bwd": (6 * ITERS - 1, 3, f"{PALLAS}:92"),
+}
 
 
 def _banner():
@@ -66,7 +94,7 @@ def _build():
     log = build.library_path().with_suffix(".log")
     if log.is_file():
         for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if any(k in line for k in ("entry function", "registers", "spill")):
                 print(f"  ptxas: {line.strip()}")
     return secs
 
@@ -119,6 +147,24 @@ def _time_pair(kern, plain, reps=25):
     return statistics.median(samples[kern]), statistics.median(samples[plain])
 
 
+def _bound_ms(name, g, c):
+    """(least milliseconds the card needs for one call, its FLOP): the
+    larger of the FP32 FMA work over the FP32 peak and the bytes (each input
+    read once, each output written once) over the memory rate."""
+    products, mats, _ = KERNELS[name]
+    flop = products * 2 * c ** 3 * g
+    return max(flop / PEAK_FP32, mats * 4 * c * c * g / PEAK_BYTES) * 1e3, flop
+
+
+def _rel_err(x, ref):
+    return ((x - ref).abs().max() / ref.abs().max()).item()
+
+
+def _check(name, err, limit, what):
+    if not err <= limit:
+        raise AssertionError(f"{name}: {what} {err:.3g} (limit {limit})")
+
+
 def _kernel_phase():
     import torch
 
@@ -127,56 +173,112 @@ def _kernel_phase():
     from style_transfer_tpu_torch.ops.cuda import ns_sqrtm as K
 
     dev = torch.device("cuda", 0)
-    cases = []
+    cases = []  # (name, input, per-matrix style weights or None off the path)
     for layer_c in sorted({c for c in TAPS.values()}):
         layers = [l for l, c in TAPS.items() if c == layer_c]
         h, w, _ = feature_shape(layers[0], 384, 512)  # the 512x384 canvas
         cases.append((f"({len(layers)},{layer_c},{layer_c})",
-                      _loss_inputs(dev, len(layers), layer_c, (h, w), layer_c), True))
-    cases.append(("(1,100,100) ragged", _loss_inputs(dev, 1, 100, (40, 40), 100), False))
-    cases.append(("(1,512,512) rank 64 + 1e-4 I", _rank_deficient(dev, 512, 64, 7), False))
+                      _loss_inputs(dev, len(layers), layer_c, (h, w), layer_c),
+                      [LAYER_WEIGHTS[l] for l in layers]))
+    cases.append(("(1,100,100) ragged", _loss_inputs(dev, 1, 100, (40, 40), 100), None))
+    cases.append(("(1,512,512) rank 64 + 1e-4 I", _rank_deficient(dev, 512, 64, 7), None))
 
-    max_abs_err, step_ms, step_plain_ms = 0.0, 0.0, 0.0
-    for name, a, on_path in cases:
+    stats = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0) for k in KERNELS}
+
+    def record(kname, case, a, ms, plain_ms, abs_err, on_path):
+        g_, c_ = a.shape[0], a.shape[-1]
+        bound, flop = _bound_ms(kname, g_, c_)
+        print(f"  {kname} {case}: kernel {ms:.4f} ms ({flop / (ms * 1e-3) / 1e12:.2f} "
+              f"TFLOP/s FP32, {bound / ms:.1%} of its bound {bound:.4f} ms), "
+              f"plain {plain_ms:.4f} ms")
+        if on_path:
+            st = stats[kname]
+            st["max_abs_err"] = max(st["max_abs_err"], abs_err)
+            st["ms"] += ms
+            st["plain_ms"] += plain_ms
+            st["bound_ms"] += bound
+
+    for name, a, weights in cases:
+        on_path = weights is not None
+        g_, c_ = a.shape[0], a.shape[-1]
+        wts = torch.tensor(weights or [1.0] * g_, device=dev)
+
+        # B1: the coupled NS kernel and its trace autograd.
         y, z = K.ns_sqrtm_yz(a, ITERS)
         py, pz = K.ns_sqrtm_yz_plain(a, ITERS)
         torch.cuda.synchronize()
+        if not (torch.isfinite(y).all() and torch.isfinite(z).all()):
+            raise AssertionError(f"{name}: non-finite ns_sqrtm_yz output")
         tr, ptr = S._batch_trace(y), S._batch_trace(py)
         tr_err = ((tr - ptr).abs() / ptr.abs()).max().item()
-        z_err = ((z - pz).abs().max() / pz.abs().max()).item()
-        if not (torch.isfinite(y).all() and torch.isfinite(z).all()):
-            raise AssertionError(f"{name}: non-finite kernel output")
-        if tr_err > KERNEL_RTOL_TRACE or z_err > KERNEL_TOL_Z:
-            raise AssertionError(f"{name}: tr(Y) rel err {tr_err:.3g} (limit "
-                                 f"{KERNEL_RTOL_TRACE}), Z err {z_err:.3g} of max|Z| "
-                                 f"(limit {KERNEL_TOL_Z})")
-        # Gradient through TraceSqrtmNS against the plain autograd version.
-        wts = torch.linspace(0.5, 1.5, a.shape[0], device=dev)
+        z_err = _rel_err(z, pz)
+        _check(name, tr_err, KERNEL_RTOL_TRACE, "ns_sqrtm_yz tr(Y) rel err")
+        _check(name, z_err, KERNEL_TOL_Z, "ns_sqrtm_yz Z err of max|Z|")
         ak = a.clone().requires_grad_(True)
         (gk,) = torch.autograd.grad((K.trace_sqrtm_ns(ak, ITERS) * wts).sum(), ak)
         ap = a.clone().requires_grad_(True)
         (gp,) = torch.autograd.grad((S.trace_sqrtm_ns(ap, ITERS) * wts).sum(), ap)
-        torch.cuda.synchronize()
-        g_err = ((gk - gp).abs().max() / gp.abs().max()).item()
-        if g_err > KERNEL_TOL_Z:
-            raise AssertionError(f"{name}: gradient err {g_err:.3g} of max (limit "
-                                 f"{KERNEL_TOL_Z})")
-
+        g_err = _rel_err(gk, gp)
+        _check(name, g_err, KERNEL_TOL_Z, "trace gradient err of max")
+        print(f"kernels at {name}: ns_sqrtm_yz tr(Y) rel err {tr_err:.2e}, Z err "
+              f"{z_err:.2e} of max|Z|, trace grad err {g_err:.2e}")
         ms, plain_ms = _time_pair(lambda: K.ns_sqrtm_yz(a, ITERS),
                                   lambda: K.ns_sqrtm_yz_plain(a, ITERS))
-        g_, c_ = a.shape[0], a.shape[-1]
-        tflops = 3 * 2 * c_ ** 3 * ITERS * g_ / (ms * 1e-3) / 1e12
-        print(f"kernel {name}: tr(Y) rel err {tr_err:.2e}, Z err {z_err:.2e} of "
-              f"max|Z|, grad err {g_err:.2e}; kernel {ms:.4f} ms "
-              f"({tflops:.2f} TFLOP/s FP32), plain {plain_ms:.4f} ms")
-        if on_path:
-            max_abs_err = max(max_abs_err, (y - py).abs().max().item(),
-                              (z - pz).abs().max().item())
-            step_ms += ms
-            step_plain_ms += plain_ms
-    print(f"kernel per step (the four groups): {step_ms:.4f} ms, plain "
-          f"{step_plain_ms:.4f} ms")
-    return max_abs_err, step_ms, step_plain_ms
+        record("ns_sqrtm_yz", name, a, ms, plain_ms,
+               max((y - py).abs().max().item(), (z - pz).abs().max().item()), on_path)
+
+        # B2: the NS forward, Y only.
+        y2 = K.ns_sqrtm(a, ITERS)
+        py2 = K.ns_sqrtm_plain(a, ITERS)
+        torch.cuda.synchronize()
+        if not torch.isfinite(y2).all():
+            raise AssertionError(f"{name}: non-finite ns_sqrtm output")
+        y2_err = _rel_err(y2, py2)
+        _check(name, y2_err, KERNEL_TOL_Y, "ns_sqrtm Y err of max|Y|")
+
+        # B3: the Lyapunov backward on the plain square root, with the loss's
+        # own gradient -(2w/C) I and with a random one.
+        eye = torch.eye(c_, device=dev)
+        g_loss = (-2.0 * wts / c_)[:, None, None] * eye
+        gen = torch.Generator(device=dev).manual_seed(c_)
+        g_rand = torch.randn((g_, c_, c_), generator=gen, device=dev)
+        q_errs, q_abs = [], 0.0
+        for gr in (g_loss.contiguous(), g_rand):
+            q = K.lyap_bwd(py2, gr, ITERS)
+            pq = K.lyap_bwd_plain(py2, gr, ITERS)
+            torch.cuda.synchronize()
+            if not torch.isfinite(q).all():
+                raise AssertionError(f"{name}: non-finite lyap_bwd output")
+            q_errs.append(_rel_err(q, pq))
+            q_abs = max(q_abs, (q - pq).abs().max().item())
+            _check(name, q_errs[-1], KERNEL_TOL_Q, "lyap_bwd Q err of max|Q|")
+
+        # SqrtmNSLyap (B2 forward, B3 backward) against the plain autograd,
+        # through the loss's trace form.
+        ak = a.clone().requires_grad_(True)
+        (gk,) = torch.autograd.grad(
+            (S._batch_trace(K.sqrtm_ns_lyap(ak, ITERS)) * wts).sum(), ak)
+        ap = a.clone().requires_grad_(True)
+        (gp,) = torch.autograd.grad(
+            (S._batch_trace(S.sqrtm_ns_lyap(ap, ITERS)) * wts).sum(), ap)
+        lg_err = _rel_err(gk, gp)
+        _check(name, lg_err, KERNEL_TOL_Q, "SqrtmNSLyap gradient err of max")
+        print(f"kernels at {name}: ns_sqrtm Y err {y2_err:.2e} of max|Y|; lyap_bwd "
+              f"Q err {q_errs[0]:.2e} (loss gradient), {q_errs[1]:.2e} (random) of "
+              f"max|Q|; SqrtmNSLyap grad err {lg_err:.2e}")
+        ms, plain_ms = _time_pair(lambda: K.ns_sqrtm(a, ITERS),
+                                  lambda: K.ns_sqrtm_plain(a, ITERS))
+        record("ns_sqrtm", name, a, ms, plain_ms, (y2 - py2).abs().max().item(), on_path)
+        g_path = g_loss.contiguous()
+        ms, plain_ms = _time_pair(lambda: K.lyap_bwd(py2, g_path, ITERS),
+                                  lambda: K.lyap_bwd_plain(py2, g_path, ITERS))
+        record("lyap_bwd", name, a, ms, plain_ms, q_abs, on_path)
+
+    for kname, st in stats.items():
+        print(f"{kname} per step (the four groups): kernel {st['ms']:.4f} ms, plain "
+              f"{st['plain_ms']:.4f} ms, bound {st['bound_ms']:.4f} ms "
+              f"({st['bound_ms'] / st['ms']:.1%} of the bound)")
+    return stats
 
 
 def _images(tmp):
@@ -204,50 +306,130 @@ def _card_vs_cpu_phase(content_path, style_path):
     from style_transfer_tpu_torch.models.weights import random_params
 
     params = random_params(0)
-    losses = []
-    for device in ("cuda:0", "cpu"):
-        st = StyleTransfer(device=device, weights=params, callback_chunk=10)
-        its = []
-        with Image.open(content_path) as c, Image.open(style_path) as s:
-            st.stylize(c.convert("RGB"), [s.convert("RGB")], min_scale=128,
-                       end_scale=128, iterations=10, initial_iterations=10,
-                       callback=its.append)
-        losses.append(np.array([i.loss for i in its]))
-    card, cpu = losses
-    rel = np.abs(card - cpu) / np.abs(cpu)
-    print(f"card vs cpu at 128 px, 10 iterations: max rel loss diff {rel.max():.2e} "
-          f"(limit {CPU_RTOL}); first/last loss card {card[0]:.7g}/{card[-1]:.7g}, "
-          f"cpu {cpu[0]:.7g}/{cpu[-1]:.7g}")
-    if not rel.max() <= CPU_RTOL:
-        raise AssertionError("card and cpu losses disagree")
+    # The L-BFGS leg starts from the gray init: from the content init the
+    # reference L-BFGS trajectory parts under float32 rounding noise (see
+    # tests/test_torch_lbfgs.py), so no two FP32 implementations follow it.
+    for optimizer, w2_grad, init in (("adam", "trace", "content"),
+                                     ("adam", "lyap", "content"),
+                                     ("lbfgs", "lyap", "gray")):
+        losses = []
+        for device in ("cuda:0", "cpu"):
+            st = StyleTransfer(device=device, weights=params, w2_grad=w2_grad,
+                               callback_chunk=10)
+            its = []
+            with Image.open(content_path) as c, Image.open(style_path) as s:
+                st.stylize(c.convert("RGB"), [s.convert("RGB")], min_scale=128,
+                           end_scale=128, iterations=10, initial_iterations=10,
+                           optimizer=optimizer, init=init, callback=its.append)
+            losses.append(np.array([i.loss for i in its]))
+        card, cpu = losses
+        rel = np.abs(card - cpu) / np.abs(cpu)
+        print(f"card vs cpu ({optimizer}, {w2_grad}, {init} init) at 128 px, 10 "
+              f"iterations: max rel loss diff {rel.max():.2e} (limit {CPU_RTOL}); "
+              f"first/last loss card {card[0]:.7g}/{card[-1]:.7g}, cpu "
+              f"{cpu[0]:.7g}/{cpu[-1]:.7g}")
+        if not rel.max() <= CPU_RTOL:
+            raise AssertionError(f"card and cpu losses disagree ({optimizer}, {w2_grad})")
 
 
-def _cli_phase(tmp, content_path, style_path):
+def _steady_phase(content_path, style_path):
+    """Steady state of the step at 512x384 for each flavour of the path:
+    ms/iter over 20 iterations ended by one sync (after 3 warm-up), then
+    torch.profiler over 5 iterations for the device's busy share (summed
+    kernel time over the wall) and the NS kernels' share of it."""
+    import torch
+    from PIL import Image
+
+    from style_transfer_tpu_torch import StyleTransfer
+    from style_transfer_tpu_torch import step as S
+    from style_transfer_tpu_torch.engine import _pil_to_nchw
+    from style_transfer_tpu_torch.models.weights import random_params
+    from style_transfer_tpu_torch.utils.ema import ema_init
+
+    st = StyleTransfer(device="cuda:0", weights=random_params(0))
+    with Image.open(content_path) as c, Image.open(style_path) as s:
+        content_img, style_img = c.convert("RGB"), s.convert("RGB")
+    image = _pil_to_nchw(content_img, (512, 384), st.device)
+    cuda = torch.autograd.DeviceType.CUDA
+    for optimizer, w2_grad in (("adam", "trace"), ("adam", "lyap"), ("lbfgs", "lyap")):
+        cfg = S.StepConfig(w2_grad=w2_grad)
+        consts = st._capture_targets(image, [style_img], [1.0], 512, 1.0, None, cfg)
+        if optimizer == "adam":
+            run, opt = S.make_adam_runner(cfg), S.adam_init(image)
+        else:
+            run, opt = S.make_lbfgs_runner(cfg), S.lbfgs_init(image)
+        state = S.LoopState(image=image, opt=opt, ema=ema_init(image, cfg.avg_decay))
+        state, _ = run(st.params, consts, state, 3)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, losses = run(st.params, consts, state, 20)
+        torch.cuda.synchronize()
+        ms_iter = (time.perf_counter() - t0) / 20 * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        if not torch.isfinite(losses).all():
+            raise AssertionError(f"steady state ({optimizer}, {w2_grad}): non-finite loss")
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, _ = run(st.params, consts, state, 5)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        kernels = [e for e in prof.events() if e.device_type == cuda]
+        busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+        ns_us = sum(e.time_range.elapsed_us() for e in kernels
+                    if "ns_gemm_kernel" in e.name or "_init_kernel" in e.name)
+        profiled = (f"busy share {busy_us / wall_us:.2f}, kernel time "
+                    f"{busy_us / 5e3:.2f} ms/iter of which NS kernels "
+                    f"{ns_us / 5e3:.2f} ms/iter" if kernels else
+                    "not measured (the profiler saw no device kernels)")
+        print(f"steady state ({optimizer}, {w2_grad}) at 512x384: {ms_iter:.2f} ms/iter, "
+              f"peak memory {peak:.1f} MiB; profiled: {profiled}")
+
+
+def _launch_counts():
+    from style_transfer_tpu_torch.ops.cuda import ns_sqrtm as K
+
+    return {name: getattr(K, name).launches for name in KERNELS}
+
+
+def _reset_launch_counts():
+    from style_transfer_tpu_torch.ops.cuda import ns_sqrtm as K
+
+    for name in KERNELS:
+        getattr(K, name).launches = 0
+
+
+def _cli_phase(tmp, content_path, style_path, label, flags, expect):
+    """One CLI pyramid run with the counts set to 0 just before it; checks
+    the run and that the launch counts equal ``expect``."""
     import numpy as np
     from PIL import Image
 
     from style_transfer_tpu_torch import cli
     from style_transfer_tpu_torch.models.weights import random_params, save_params
-    from style_transfer_tpu_torch.ops.cuda import ns_sqrtm as K
 
     weights = tmp / "vgg19_random0.npz"
-    save_params(random_params(0), weights)
-    out, trace = tmp / "out.png", tmp / "trace.json"
+    if not weights.is_file():
+        save_params(random_params(0), weights)
+    out, trace = tmp / f"out_{label}.png", tmp / f"trace_{label}.json"
     argv = [str(content_path), str(style_path), "--devices", "cuda:0",
             "--end-scale", "512", "--min-scale", "128", "-i", "20", "-ii", "20",
-            "-o", str(out), "--trace", str(trace), "--vgg-weights", str(weights)]
-    K.ns_sqrtm_yz.launches = 0
+            "-o", str(out), "--trace", str(trace), "--vgg-weights", str(weights),
+            *flags]
+    _reset_launch_counts()
     t0 = time.perf_counter()
     cli.main(argv)
     wall = time.perf_counter() - t0
-    launches = K.ns_sqrtm_yz.launches
+    launches = _launch_counts()
 
     its = json.loads(trace.read_text())["iterates"]
     by_scale = {}
     for it in its:
         by_scale.setdefault((it["w"], it["h"]), []).append(it)
     sizes = list(by_scale)
-    print(f"CLI pyramid: {len(its)} iterations over scales {sizes} in {wall:.2f} s")
+    print(f"CLI pyramid [{label}: {' '.join(flags) or 'defaults'}]: {len(its)} "
+          f"iterations over scales {sizes} in {wall:.2f} s")
     for (w, h), s in by_scale.items():
         ms_iter = (s[-1]["time"] - s[0]["time"]) / (len(s) - 1) * 1e3
         peak = max(i["gpu_ram"] for i in s) / 2**20
@@ -269,10 +451,10 @@ def _cli_phase(tmp, content_path, style_path):
         arr = np.asarray(img.convert("RGB"))
         if arr.std() == 0:
             raise AssertionError("output image is constant")
-    print(f"kernel launches over the CLI run: {launches} (expected 4 groups x 100 "
-          "iterations = 400)")
-    if launches != 400:
-        raise AssertionError(f"kernel launched {launches} times, expected 400")
+    print(f"  kernel launches over the run: {launches} (expected {expect}: 4 groups "
+          "x 100 iterations of each kernel on the path)")
+    if launches != expect:
+        raise AssertionError(f"launches {launches}, expected {expect}")
     return launches
 
 
@@ -295,31 +477,47 @@ def main():
     try:
         card = _banner()
         _build()
-        phase = "kernel against plain version"
-        max_abs_err, ms, plain_ms = _kernel_phase()
+        phase = "kernels against plain versions"
+        stats = _kernel_phase()
         with tempfile.TemporaryDirectory() as tmp:
             tmp = Path(tmp)
             content_path, style_path = _images(tmp)
             phase = "card against CPU"
             _card_vs_cpu_phase(content_path, style_path)
             phase = "main path through the CLI"
-            launches = _cli_phase(tmp, content_path, style_path)
+            main_path = _cli_phase(tmp, content_path, style_path, "adam-trace", [],
+                                   {"ns_sqrtm_yz": 400, "ns_sqrtm": 0, "lyap_bwd": 0})
+            phase = "reference-flavour path through the CLI"
+            lyap_path = {"ns_sqrtm_yz": 0, "ns_sqrtm": 400, "lyap_bwd": 400}
+            lyap_run = _cli_phase(tmp, content_path, style_path, "adam-lyap",
+                                  ["--w2-grad", "lyap"], lyap_path)
+            _cli_phase(tmp, content_path, style_path, "lbfgs-lyap",
+                       ["--optimizer", "lbfgs", "--w2-grad", "lyap"], lyap_path)
+            phase = "steady state of the step"
+            _steady_phase(content_path, style_path)
     except Exception:
         traceback.print_exc()
         print(f"chip_smoke.py: FAILED in phase: {phase}", file=sys.stderr)
         return 1
     sys.stdout.flush()
+    # Each kernel's launches come from the run of the path it serves: B1
+    # from the main path, B2 and B3 from the --w2-grad lyap path.
+    launches = {"ns_sqrtm_yz": main_path["ns_sqrtm_yz"],
+                "ns_sqrtm": lyap_run["ns_sqrtm"], "lyap_bwd": lyap_run["lyap_bwd"]}
     print(card)
     print(json.dumps({"kernels": [{
-        "name": "ns_sqrtm_yz",
+        "name": name,
         "route": "cuda",
-        "source": "style_transfer_tpu_torch/csrc/ns_sqrtm.cu",
-        "replaces": "style_transfer_tpu/ops/pallas/ns_sqrtm.py:73",
-        "launches": launches,
-        "max_abs_err": max_abs_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }]}))
+        "source": SRC,
+        "replaces": replaces,
+        "launches": launches[name],
+        "max_abs_err": stats[name]["max_abs_err"],
+        "ms": stats[name]["ms"],
+        "plain_ms": stats[name]["plain_ms"],
+        "bound_ms": stats[name]["bound_ms"],
+        "bound_by": "operations",
+        "library_ms": None,  # no single PyTorch call computes these functions
+    } for name, (_, _, replaces) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 """Command-line interface of the PyTorch port.
 
-Port of ``style_transfer_tpu/cli.py`` for the Adam pyramid: the reference
-flag surface that the port implements, with engine hyperparameter flags
+Port of ``style_transfer_tpu/cli.py`` for the Adam and reference L-BFGS
+pyramids with either W2 gradient: the reference flag surface that the port
+implements, with engine hyperparameter flags
 taking their defaults and types from ``StyleTransfer.stylize``'s keyword
 defaults/annotations, so CLI and engine cannot drift. ``--devices`` names one
 torch device (default ``cuda:0``; ``cpu`` when named). ``--profile DIR``
@@ -94,8 +95,10 @@ def build_parser(stylize_fn):
                    help="the content weight")
     p.add_argument("--tv-weight", "-tw", **arg_info("tv_weight"),
                    help="the smoothing weight")
-    p.add_argument("--optimizer", **arg_info("optimizer"), choices=["adam"],
-                   help="the optimizer to use")
+    p.add_argument("--optimizer", **arg_info("optimizer"),
+                   choices=["adam", "lbfgs"],
+                   help="the optimizer to use (lbfgs = the reference's "
+                        "fixed-step flavor)")
     p.add_argument("--min-scale", "-ms", **arg_info("min_scale"),
                    help="the minimum scale (max image dim), in pixels")
     p.add_argument("--end-scale", "-s", type=str, default="512",
@@ -129,6 +132,11 @@ def build_parser(stylize_fn):
                    choices=["mse", "scaled"],
                    help="content objective: plain MSE (reference default) or "
                         "gradient-normalized ScaledMSE")
+    p.add_argument("--w2-grad", type=str, default="trace",
+                   choices=["trace", "lyap"],
+                   help="W2 sqrt-term gradient: analytic trace VJP (exact, "
+                        "faster) or the reference's iterative Lyapunov "
+                        "backward")
     p.add_argument("--vgg-weights", type=str, default=None,
                    help="path to VGG-19 weights (.npz native or torchvision .pth)")
     p.add_argument("--align", **arg_info("align"),
@@ -223,6 +231,7 @@ def main(argv=None):
         weights=args.vgg_weights,
         style_loss=args.style_loss,
         content_loss=args.content_loss,
+        w2_grad=args.w2_grad,
         callback_chunk=args.callback_chunk,
     )
     st.seed(args.random_seed)

@@ -1,11 +1,13 @@
-"""StyleTransfer engine: the sqrt(2) pyramid over the Adam step.
+"""StyleTransfer engine: the sqrt(2) pyramid over the Adam or L-BFGS step.
 
-Port of ``style_transfer_tpu/engine.py`` for the Adam optimizer: the same
-``StyleTransfer``/``stylize`` surface and defaults, the same per-iteration
-``STIterate`` callback contract, host-side ``numpy.random.RandomState``
-inits (bit-identical to the JAX package's), per-scale target capture with
-multi-style blending over (mean, second raw moment), and the Adam-moment
-warm-start at each scale crossing.
+Port of ``style_transfer_tpu/engine.py`` for the optimizers ``adam`` and
+``lbfgs`` (the reference's fixed-step L-BFGS) and both W2 gradients
+(``trace`` and the reference's ``lyap``): the same ``StyleTransfer``/
+``stylize`` surface and defaults, the same per-iteration ``STIterate``
+callback contract, host-side ``numpy.random.RandomState`` inits
+(bit-identical to the JAX package's), per-scale target capture with
+multi-style blending over (mean, second raw moment), the Adam-moment
+warm-start at each scale crossing, and a fresh L-BFGS history at each scale.
 
 Tensors are NCHW on ``device``. ``get_image_tensor`` returns the JAX
 package's ``(H, W, 3)`` float array; ``get_image`` a PIL image or a uint16
@@ -33,7 +35,9 @@ from .step import (
     StepConfig,
     adam_init,
     build_loss_terms_fn,
+    lbfgs_init,
     make_adam_runner,
+    make_lbfgs_runner,
 )
 from .utils.ema import ema_get, ema_init
 from .utils.scales import align_size, gen_scales, size_to_fit
@@ -96,7 +100,8 @@ class StyleTransfer:
         dict of HWIO arrays; None resolves via models/weights.py.
       style_loss: 'w2' (default, reference behavior) or 'gram'.
       content_loss: 'mse' (reference default) or 'scaled'.
-      w2_grad: 'trace' (the only mode ported so far).
+      w2_grad: 'trace' (analytic ½·A^{-1/2} VJP, the default) or 'lyap'
+        (the reference's iterative Lyapunov backward).
       callback_chunk: iterations per host sync. Telemetry is emitted per
         iteration; wall-times within a chunk are interpolated.
     """
@@ -118,7 +123,7 @@ class StyleTransfer:
         if pooling not in ("max", "average", "l2"):
             raise ValueError(f"unknown pooling mode {pooling!r}")
         self.pooling = pooling
-        # Validates the loss modes now (w2_grad='lyap' raises NotImplementedError).
+        # Validates the loss modes now.
         StepConfig(style_loss=style_loss, content_loss=content_loss, w2_grad=w2_grad)
         self.style_loss = style_loss
         self.content_loss = content_loss
@@ -276,9 +281,11 @@ class StyleTransfer:
         align: int = None,
         callback=None,
     ):
-        if optimizer != "adam":
+        if optimizer == "lbfgs-zoom":
             raise NotImplementedError(
-                f"optimizer {optimizer!r} is not ported yet, see ROADMAP")
+                "optimizer 'lbfgs-zoom' is not ported yet, see ROADMAP")
+        if optimizer not in ("adam", "lbfgs"):
+            raise ValueError("optimizer must be one of 'adam', 'lbfgs', 'lbfgs-zoom'")
         with _fp32_math(self.device):
             min_scale = min(min_scale, end_scale)
             content_weights = [content_weight / len(self.content_layers)] * len(
@@ -324,11 +331,15 @@ class StyleTransfer:
                     style_size, cfg)
                 self._last_cfg, self._last_consts = cfg, consts
 
-                runner = make_adam_runner(cfg)
-                if opt_state is None:
-                    opt_state = adam_init(self.image)
-                else:
-                    opt_state = _scale_adam(opt_state, (ch, cw))
+                if optimizer == "adam":
+                    runner = make_adam_runner(cfg)
+                    if opt_state is None:
+                        opt_state = adam_init(self.image)
+                    else:
+                        opt_state = _scale_adam(opt_state, (ch, cw))
+                else:  # a fresh history at every scale, as the JAX engine
+                    runner = make_lbfgs_runner(cfg)
+                    opt_state = lbfgs_init(self.image)
                 state = LoopState(image=self.image, opt=opt_state, ema=self.average)
 
                 reset_peak_device_ram(self.device)

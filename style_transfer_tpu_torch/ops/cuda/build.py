@@ -36,6 +36,8 @@ _VP, _I = ctypes.c_void_p, ctypes.c_int
 # C symbol -> argtypes; every pointer and the stream are c_void_p.
 _SIGNATURES = {
     "stt_ns_sqrtm_yz_f32": [_VP] * 7 + [_I, _I, _I, _VP],
+    "stt_ns_sqrtm_f32": [_VP] * 7 + [_I, _I, _I, _VP],
+    "stt_lyap_bwd_f32": [_VP] * 9 + [_I, _I, _I, _VP],
 }
 
 

@@ -17,15 +17,19 @@ Port of ``style_transfer_tpu/ops/losses.py``. Feature maps are NCHW here
 
 Every matmul and einsum here is full FP32: on CUDA the callers run with
 ``allow_tf32`` off, because the covariance feeds a Newton-Schulz square root
-that diverges under single-pass low-precision products.
+that diverges under single-pass low-precision products. The W2 square root
+goes through the dispatching ``ops/cuda/ns_sqrtm.py::sqrtm_ns_lyap``: on a
+CUDA tensor it launches the NS and Lyapunov kernels (or raises), on a CPU
+tensor it takes their plain versions.
 """
 
 from typing import NamedTuple
 
 import torch
 
+from .cuda.ns_sqrtm import sqrtm_ns_lyap
 from .pooling import replicate_pad2d
-from .sqrtm import sqrtm_eig, sqrtm_ns_lyap
+from .sqrtm import sqrtm_eig
 
 __all__ = [
     "scaled_mse",
@@ -138,7 +142,8 @@ def w2_losses_batched(means, covs, target: W2Target, sqrtm_iters: int = 12,
     Args: means (G, C); covs (G, C, C) already +eps*I; target fields stacked
     along G. Returns (G,) losses. With ``trace_sqrtm_fn`` the sqrt term is
     computed as a trace directly (analytic ½·A^{-1/2} backward); otherwise
-    ``sqrtm_fn`` (default: the Lyapunov-backward NS) gives the full matrix.
+    ``sqrtm_fn`` (default: the dispatching Lyapunov-backward NS) gives the
+    full matrix.
     """
     mean_diff = torch.mean((means - target.mean) ** 2, dim=-1)
     inner = target.cov_sqrt @ (covs @ target.cov_sqrt)

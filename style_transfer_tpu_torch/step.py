@@ -1,12 +1,18 @@
-"""The optimization step: the W2/content/TV objective and the Adam runner.
+"""The optimization step: the W2/content/TV objective, the Adam runner and
+the reference L-BFGS runner.
 
 Port of the monolithic path of ``style_transfer_tpu/step.py``: the loss is
-the VGG forward, per-layer moments -> covariance, ``tr sqrtm`` of
-``C_t^½·C·C_t^½`` by the coupled Newton-Schulz kernel (same-C style layers
-batched into one (G, C, C) call), content MSE and TV. The runner is an eager
-loop in the reference's order — gradient (image only), Adam, clamp to
-[0, 1], EMA — that keeps the per-iteration losses on the device and leaves
-the sync to the caller, once per chunk.
+the VGG forward, per-layer moments -> covariance, the square-root term of
+``C_t^½·C·C_t^½`` (same-C style layers batched into one (G, C, C) kernel
+call), content MSE and TV. With ``w2_grad='trace'`` the square-root term is
+``tr sqrtm`` by the coupled Newton-Schulz kernel with the analytic ½·Z
+backward; with ``'lyap'`` (the reference's own gradient) it is the full NS
+square root with the iterative Lyapunov backward, both kernels.
+
+The runners are eager loops in the reference's order that keep the
+per-iteration losses on the device and leave the sync to the caller, once
+per chunk: Adam is gradient (image only), Adam, clamp to [0, 1], EMA; L-BFGS
+is gradient, a fixed-step L-BFGS update with no clamp, EMA.
 """
 
 from dataclasses import dataclass
@@ -17,17 +23,21 @@ import torch
 
 from .models.vgg import INPUT, extract_features
 from .ops import losses as L
-from .ops.cuda.ns_sqrtm import trace_sqrtm_ns
+from .ops.cuda.ns_sqrtm import sqrtm_ns_lyap, trace_sqrtm_ns
 from .utils.ema import EMAState, ema_update
 
 __all__ = [
     "StepConfig",
     "AdamState",
+    "LBFGSState",
     "LoopState",
     "adam_init",
     "build_loss_fn",
     "build_loss_terms_fn",
+    "lbfgs_init",
+    "lbfgs_step",
     "make_adam_runner",
+    "make_lbfgs_runner",
 ]
 
 
@@ -53,16 +63,12 @@ class StepConfig:
     w2_eps: float = 1e-4
     sqrtm_iters: int = 12
     # W2 sqrt-term gradient: 'trace' = analytic ½·A^{-1/2} backward from the
-    # coupled NS kernel's Z output. The reference-flavor 'lyap' needs the
-    # two kernels that are not ported yet.
+    # coupled NS kernel's Z output; 'lyap' = the reference's iterative
+    # Lyapunov backward through the full NS square root.
     w2_grad: str = "trace"
 
     def __post_init__(self):
-        if self.w2_grad == "lyap":
-            raise NotImplementedError(
-                "w2_grad='lyap' is not ported yet (its NS forward and "
-                "Lyapunov backward kernels are still to port), see ROADMAP")
-        if self.w2_grad != "trace":
+        if self.w2_grad not in ("trace", "lyap"):
             raise ValueError(f"unknown w2_grad {self.w2_grad!r}")
         if self.style_loss not in ("w2", "gram"):
             raise ValueError(f"unknown style_loss {self.style_loss!r}")
@@ -81,8 +87,8 @@ class AdamState(NamedTuple):
 
 
 class LoopState(NamedTuple):
-    image: torch.Tensor  # NCHW f32 in [0, 1]
-    opt: AdamState
+    image: torch.Tensor  # NCHW f32 (in [0, 1] under Adam's clamp)
+    opt: "AdamState | LBFGSState"
     ema: EMAState
 
 
@@ -100,6 +106,7 @@ def build_loss_fn(cfg: StepConfig):
         for layer, w in zip(cfg.style_layers, cfg.style_layer_weights):
             c = consts["style"][layer].mean.shape[-1]
             groups.setdefault(c, []).append((layer, w))
+        trace_fn = trace_sqrtm_ns if cfg.w2_grad == "trace" else None
         total = 0.0
         for items in groups.values():
             means, covs, t_mean, t_cov, t_cs, weights = [], [], [], [], [], []
@@ -116,7 +123,7 @@ def build_loss_fn(cfg: StepConfig):
                                 cov_sqrt=torch.stack(t_cs))
             losses = L.w2_losses_batched(
                 torch.stack(means), torch.stack(covs), target, cfg.sqrtm_iters,
-                trace_sqrtm_fn=trace_sqrtm_ns,
+                sqrtm_fn=sqrtm_ns_lyap, trace_sqrtm_fn=trace_fn,
             )
             # Python-scalar weights: a host-to-device copy here would
             # synchronize the stream in the middle of every step.
@@ -195,10 +202,11 @@ def _adam_apply(cfg: StepConfig, opt: AdamState, g):
     return update, AdamState(mu=mu, nu=nu, count=count)
 
 
-def make_adam_runner(cfg: StepConfig):
+def _make_runner(cfg: StepConfig, apply):
     """Returns ``run(params, consts, state, n_steps) -> (state, losses)``:
-    ``n_steps`` iterations of gradient -> Adam -> clamp -> EMA, with the
-    per-iteration losses in an (n_steps,) tensor on the image's device."""
+    ``n_steps`` iterations of gradient (image only) -> ``apply(opt, image,
+    g) -> (image, opt)`` -> EMA, with the per-iteration losses in an
+    (n_steps,) tensor on the image's device."""
     loss_fn = build_loss_fn(cfg)
 
     def run(params, consts, state: LoopState, n_steps: int):
@@ -208,10 +216,154 @@ def make_adam_runner(cfg: StepConfig):
             x = image.detach().requires_grad_(True)
             loss = loss_fn(x, params, consts)
             (g,) = torch.autograd.grad(loss, x)
-            update, opt = _adam_apply(cfg, opt, g)
-            image = torch.clamp(image - update, 0.0, 1.0)
+            image, opt = apply(opt, image, g)
             ema = ema_update(ema, image, cfg.avg_decay)
             losses[k] = loss.detach()
         return LoopState(image=image, opt=opt, ema=ema), losses
 
     return run
+
+
+def make_adam_runner(cfg: StepConfig):
+    """The Adam runner (see :func:`_make_runner`): gradient -> Adam -> clamp
+    to [0, 1] -> EMA."""
+
+    def apply(opt, image, g):
+        update, opt = _adam_apply(cfg, opt, g)
+        return torch.clamp(image - update, 0.0, 1.0), opt
+
+    return _make_runner(cfg, apply)
+
+
+class LBFGSState(NamedTuple):
+    """Fixed-size circular L-BFGS history (torch.optim.LBFGS semantics), all
+    on the image's device."""
+
+    s_hist: torch.Tensor  # (m, *image) past steps s_k = t_k * d_k
+    y_hist: torch.Tensor  # (m, *image) past gradient differences
+    rho: torch.Tensor  # (m,) 1 / (y_k . s_k)
+    num_old: torch.Tensor  # int32: valid history entries
+    head: torch.Tensor  # int32: index of the oldest entry (circular)
+    d: torch.Tensor  # (*image) last search direction
+    t: torch.Tensor  # f32: last step length
+    prev_grad: torch.Tensor  # (*image)
+    h_diag: torch.Tensor  # f32: initial Hessian scaling
+    n_iter: torch.Tensor  # int32: global iteration count
+
+
+_LBFGS_MEMORY = 10
+_LBFGS_TOL_GRAD = 1e-7
+_LBFGS_TOL_CHANGE = 1e-9
+_LBFGS_YS_MIN = 1e-10
+
+
+def lbfgs_init(image, memory_size: int = _LBFGS_MEMORY) -> LBFGSState:
+    dev = image.device
+
+    def scalar(v, dtype):
+        return torch.full((), v, dtype=dtype, device=dev)
+
+    return LBFGSState(
+        s_hist=torch.zeros((memory_size, *image.shape), dtype=image.dtype, device=dev),
+        y_hist=torch.zeros((memory_size, *image.shape), dtype=image.dtype, device=dev),
+        rho=torch.zeros((memory_size,), dtype=torch.float32, device=dev),
+        num_old=scalar(0, torch.int32),
+        head=scalar(0, torch.int32),
+        d=torch.zeros_like(image),
+        t=scalar(0.0, torch.float32),
+        prev_grad=torch.zeros_like(image),
+        h_diag=scalar(1.0, torch.float32),
+        n_iter=scalar(0, torch.int32),
+    )
+
+
+def _vdot(a, b):
+    return torch.dot(a.reshape(-1), b.reshape(-1))
+
+
+def _lbfgs_direction(state: LBFGSState, g, lr: float):
+    """One torch-semantics L-BFGS direction/step-length computation.
+
+    Matches ``torch.optim.LBFGS`` with ``max_iter=1, history_size=m,
+    line_search_fn=None`` (the reference's configuration): history update
+    gated on ``ys > 1e-10``, two-loop recursion seeded with
+    ``h_diag = ys / yy``, first-iteration step length ``min(1, 1/sum|g|) *
+    lr``, then ``lr``. Every decision is a device mask (``torch.where``) and
+    the two loops are unrolled over the fixed m, so nothing here reads a
+    value back to the host.
+    """
+    m = state.s_hist.shape[0]
+    dev = g.device
+    first = state.n_iter == 0
+    hist_shape = (m,) + (1,) * g.ndim
+
+    # --- history update (skipped on the first iteration) -----------------
+    y = g - state.prev_grad
+    s = state.d * state.t
+    ys = _vdot(y, s)
+    insert = torch.logical_and(torch.logical_not(first), ys > _LBFGS_YS_MIN)
+    slot = (state.head + state.num_old) % m
+    at_slot = torch.logical_and(torch.arange(m, device=dev) == slot, insert)
+    s_hist = torch.where(at_slot.view(hist_shape), s, state.s_hist)
+    y_hist = torch.where(at_slot.view(hist_shape), y, state.y_hist)
+    rho = torch.where(at_slot, 1.0 / torch.clamp(ys, min=_LBFGS_YS_MIN), state.rho)
+    full = state.num_old == m
+    num_old = torch.where(insert, torch.clamp(state.num_old + 1, max=m),
+                          state.num_old)
+    head = torch.where(torch.logical_and(insert, full), (state.head + 1) % m,
+                       state.head)
+    h_diag = torch.where(insert, ys / torch.clamp(_vdot(y, y), min=1e-30),
+                         state.h_diag)
+
+    # --- two-loop recursion, over the history in logical order -----------
+    order = ((head + torch.arange(m, device=dev)) % m).long()  # oldest first
+    s_l = s_hist.index_select(0, order)
+    y_l = y_hist.index_select(0, order)
+    rho_l = rho.index_select(0, order)
+    active = (torch.arange(m, device=dev) < num_old).float()
+    q = -g
+    al = [None] * m
+    for j in reversed(range(m)):  # newest -> oldest
+        al[j] = active[j] * rho_l[j] * _vdot(s_l[j], q)
+        q = q - al[j] * y_l[j]
+    r = q * h_diag
+    for j in range(m):
+        be = active[j] * rho_l[j] * _vdot(y_l[j], r)
+        r = r + active[j] * (al[j] - be) * s_l[j]
+
+    d = torch.where(first, -g, r)
+    t0 = torch.clamp(1.0 / torch.clamp(torch.sum(torch.abs(g)), min=1e-30), max=1.0)
+    t = torch.where(first, t0 * lr, torch.full_like(t0, lr))
+    new_state = LBFGSState(
+        s_hist=s_hist, y_hist=y_hist, rho=rho, num_old=num_old, head=head,
+        d=d, t=t, prev_grad=g, h_diag=h_diag, n_iter=state.n_iter + 1,
+    )
+    return d, t, new_state
+
+
+def lbfgs_step(state: LBFGSState, image, g, lr: float):
+    """Returns (new_image, new_state) for one reference-flavor iteration."""
+    opt_cond = torch.max(torch.abs(g)) <= _LBFGS_TOL_GRAD
+    d, t, new_state = _lbfgs_direction(state, g, lr)
+    gtd = _vdot(g, d)
+    take = torch.logical_and(torch.logical_not(opt_cond), gtd <= -_LBFGS_TOL_CHANGE)
+    new_image = image + take.to(image.dtype) * t * d
+    # If converged (opt_cond), torch returns before touching any state.
+    new_state = LBFGSState(*(torch.where(opt_cond, old, new)
+                             for old, new in zip(state, new_state)))
+    return new_image, new_state
+
+
+def make_lbfgs_runner(cfg: StepConfig):
+    """The reference-flavour L-BFGS runner (see :func:`_make_runner`):
+    gradient -> L-BFGS step -> EMA, with ``state.opt`` an :class:`LBFGSState`.
+
+    Matches the reference's ``optim.LBFGS(max_iter=1, history_size=10)`` with
+    its default lr=1.0 and no line search: a two-loop recursion over a fixed
+    10-deep (s, y) history, fixed step length, and no box clamp mid-run (the
+    reference clamps only under Adam). ``cfg.step_size`` is ignored. The
+    history is a fixed-size device buffer, not ``torch.optim.LBFGS``'s
+    Python lists, whose host-side decisions would sync the stream every
+    iteration.
+    """
+    return _make_runner(cfg, lambda opt, image, g: lbfgs_step(opt, image, g, lr=1.0))

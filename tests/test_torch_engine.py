@@ -97,11 +97,13 @@ def test_init_modes_bit_identical_to_jax(init, content_pil, style_pil):
 
 
 def test_lyap_and_other_optimizers_are_refused(content_pil, style_pil):
+    """w2_grad='lyap' and optimizer='lbfgs' are ported; the optimizer still
+    to port is refused by name, an unknown one as in the JAX engine."""
+    st = T.StyleTransfer(device="cpu", weights=PARAMS, w2_grad="lyap")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.StyleTransfer(device="cpu", weights=PARAMS, w2_grad="lyap")
-    st = T.StyleTransfer(device="cpu", weights=PARAMS)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        st.stylize(content_pil, [style_pil], optimizer="lbfgs")
+        st.stylize(content_pil, [style_pil], optimizer="lbfgs-zoom")
+    with pytest.raises(ValueError, match="optimizer must be one of"):
+        st.stylize(content_pil, [style_pil], optimizer="sgd")
 
 
 def test_cli_writes_output_and_trace(tmp_path, content_pil, style_pil):
@@ -122,8 +124,8 @@ def test_cli_writes_output_and_trace(tmp_path, content_pil, style_pil):
     assert all(np.isfinite(it["loss"]) for it in t["iterates"])
     assert t["args"]["devices"] == "cpu" and t["args"]["end_scale"] == 64
     # Flags of later slices and TPU-only flags are absent.
-    for flag in (["--web"], ["--sqrtm", "xla"], ["--w2-grad", "lyap"],
-                 ["--optimizer", "lbfgs"], ["--checkpoint", "x"]):
+    for flag in (["--web"], ["--sqrtm", "xla"], ["--checkpoint", "x"],
+                 ["--optimizer", "lbfgs-zoom"]):
         with pytest.raises(SystemExit):
             tcli.build_parser(T.StyleTransfer.stylize).parse_args(
                 ["c", "s", *flag])
