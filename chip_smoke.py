@@ -8,10 +8,14 @@ each of which exits non-zero on failure:
 
 1. setup: versions, the card's name and power limit, and the build of the
    CUDA kernels from the checkout's sources (timed);
-2. kernels against plain versions, at the W2 loss's group shapes, a ragged
-   shape and a rank-deficient case, on inputs formed as in the loss
-   (C_t^½·C·C_t^½ from random features), each kernel and its plain version
-   timed with CUDA events beside the kernel's bound:
+2. kernels against plain versions, at the W2 loss's group shapes, ragged
+   shapes on both sides of the regime boundary (C=100, 200, 300) and a
+   rank-deficient case, on inputs formed as in the loss (C_t^½·C·C_t^½ from
+   random features), each kernel and its plain version timed with CUDA
+   events beside the kernel's bound (the larger of 3x its FP32 FLOP over the
+   TF32 tensor-core peak, the 3xTF32 route, and its bytes over the memory
+   rate; the FP32-FMA bound of earlier reports is printed beside it);
+   single-pass TF32's error on the plain chain is printed, not checked:
    - the coupled NS kernel (B1): tr(Y) to rtol 1e-4, Z to 1e-3 of max|Z|,
      the trace autograd gradient to 1e-3 of its max;
    - the NS forward kernel (B2): Y to 1e-4 of max|Y|;
@@ -57,16 +61,21 @@ KERNEL_TOL_Z = 1e-3
 KERNEL_TOL_Y = 1e-4
 KERNEL_TOL_Q = 1e-3
 CPU_RTOL = 1e-3
-# Published H100 SXM peaks: FP32 outside the tensor cores, and HBM3.
+# Published H100 SXM peaks: dense TF32 on the tensor cores, FP32 outside
+# them, and HBM3.
+PEAK_TF32 = 495e12
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 SRC = "style_transfer_tpu_torch/csrc/ns_sqrtm.cu"
 PALLAS = "style_transfer_tpu/ops/pallas/ns_sqrtm.py"
-# name -> (FP32 products of 2C^3 per matrix, C x C matrices read + written,
-# the TPU kernel it replaces)
+# Every kernel of csrc/ carries this prefix (profiler filter of phase 6).
+KERNEL_PREFIX = "stt_nsk_"
+# name -> (products of 2C^3 per matrix that the inputs need, C x C matrices
+# read + written, the TPU kernel it replaces). NS's first iteration has no
+# product by Z_0 = I; B2 skips the last Z product, B3 the last a product.
 KERNELS = {
-    "ns_sqrtm_yz": (3 * ITERS, 3, f"{PALLAS}:73"),
-    "ns_sqrtm": (3 * ITERS - 1, 2, f"{PALLAS}:57"),
+    "ns_sqrtm_yz": (3 * ITERS - 2, 3, f"{PALLAS}:73"),
+    "ns_sqrtm": (3 * ITERS - 3, 2, f"{PALLAS}:57"),
     "lyap_bwd": (6 * ITERS - 1, 3, f"{PALLAS}:92"),
 }
 
@@ -85,17 +94,25 @@ def _banner():
 
 
 def _build():
+    """Builds the kernels and prints each entry function's registers, shared
+    memory and spills from the ptxas report."""
+    import re
+
     from style_transfer_tpu_torch.ops.cuda import build
 
     t0 = time.perf_counter()
     build.load()
     secs = time.perf_counter() - t0
     print(f"kernel build: {secs:.2f} s ({build.library_path().name})")
-    log = build.library_path().with_suffix(".log")
-    if log.is_file():
-        for line in log.read_text().splitlines():
-            if any(k in line for k in ("entry function", "registers", "spill")):
-                print(f"  ptxas: {line.strip()}")
+    name = None
+    for line in build.library_path().with_suffix(".log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:  # the kernels' names are lower case; the mangling is not
+            k = re.search(KERNEL_PREFIX + r"[a-z_]+", m.group(1))
+            tmpl = re.search(r"ILi(\d+)E", m.group(1))
+            name = (k.group(0) if k else m.group(1)) + (f"<{tmpl.group(1)}>" if tmpl else "")
+        elif name and ("spill" in line or "registers" in line):
+            print(f"  ptxas {name}: {line.strip().removeprefix('ptxas info    : ')}")
     return secs
 
 
@@ -148,12 +165,17 @@ def _time_pair(kern, plain, reps=25):
 
 
 def _bound_ms(name, g, c):
-    """(least milliseconds the card needs for one call, its FLOP): the
-    larger of the FP32 FMA work over the FP32 peak and the bytes (each input
-    read once, each output written once) over the memory rate."""
+    """(least milliseconds the card needs for one call, the FP32-FMA figure
+    of earlier reports, its FLOP). The least time is the larger of the
+    FP32-accurate route's tensor-core work, 3 TF32 passes per product over
+    the TF32 peak, and the bytes (each input read once, each output written
+    once) over the memory rate; the FP32-FMA figure puts the FLOP over the
+    FP32 peak instead."""
     products, mats, _ = KERNELS[name]
     flop = products * 2 * c ** 3 * g
-    return max(flop / PEAK_FP32, mats * 4 * c * c * g / PEAK_BYTES) * 1e3, flop
+    byte_ms = mats * 4 * c * c * g / PEAK_BYTES * 1e3
+    return (max(3 * flop / PEAK_TF32 * 1e3, byte_ms),
+            max(flop / PEAK_FP32 * 1e3, byte_ms), flop)
 
 
 def _rel_err(x, ref):
@@ -181,22 +203,30 @@ def _kernel_phase():
                       _loss_inputs(dev, len(layers), layer_c, (h, w), layer_c),
                       [LAYER_WEIGHTS[l] for l in layers]))
     cases.append(("(1,100,100) ragged", _loss_inputs(dev, 1, 100, (40, 40), 100), None))
+    cases.append(("(1,200,200) ragged, cluster regime",
+                  _loss_inputs(dev, 1, 200, (48, 64), 200), None))
+    cases.append(("(1,300,300) ragged, GEMM regime",
+                  _loss_inputs(dev, 1, 300, (48, 64), 300), None))
     cases.append(("(1,512,512) rank 64 + 1e-4 I", _rank_deficient(dev, 512, 64, 7), None))
 
-    stats = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0) for k in KERNELS}
+    stats = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                     fp32_fma_bound_ms=0.0) for k in KERNELS}
 
     def record(kname, case, a, ms, plain_ms, abs_err, on_path):
         g_, c_ = a.shape[0], a.shape[-1]
-        bound, flop = _bound_ms(kname, g_, c_)
+        bound, fma_bound, flop = _bound_ms(kname, g_, c_)
         print(f"  {kname} {case}: kernel {ms:.4f} ms ({flop / (ms * 1e-3) / 1e12:.2f} "
-              f"TFLOP/s FP32, {bound / ms:.1%} of its bound {bound:.4f} ms), "
-              f"plain {plain_ms:.4f} ms")
+              f"TFLOP/s FP32-accurate, {bound / ms:.1%} of its bound {bound:.4f} ms; "
+              f"FP32-FMA bound {fma_bound:.4f} ms), plain {plain_ms:.4f} ms")
+        if not bound <= ms:
+            raise AssertionError(f"{kname} {case}: {ms} ms is below its bound {bound} ms")
         if on_path:
             st = stats[kname]
             st["max_abs_err"] = max(st["max_abs_err"], abs_err)
             st["ms"] += ms
             st["plain_ms"] += plain_ms
             st["bound_ms"] += bound
+            st["fp32_fma_bound_ms"] += fma_bound
 
     for name, a, weights in cases:
         on_path = weights is not None
@@ -222,6 +252,16 @@ def _kernel_phase():
         _check(name, g_err, KERNEL_TOL_Z, "trace gradient err of max")
         print(f"kernels at {name}: ns_sqrtm_yz tr(Y) rel err {tr_err:.2e}, Z err "
               f"{z_err:.2e} of max|Z|, trace grad err {g_err:.2e}")
+        if c_ >= 256:  # single-pass TF32 on the plain chain, for the record
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                ty, tz = K.ns_sqrtm_yz_plain(a, ITERS)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+            ttr = ((S._batch_trace(ty) - ptr).abs() / ptr.abs()).max().item()
+            print(f"single-pass TF32 plain chain at {name} (not a check): tr(Y) rel err "
+                  f"{ttr:.2e}, Y err {_rel_err(ty, py):.2e} of max|Y|, Z err "
+                  f"{_rel_err(tz, pz):.2e} of max|Z|")
         ms, plain_ms = _time_pair(lambda: K.ns_sqrtm_yz(a, ITERS),
                                   lambda: K.ns_sqrtm_yz_plain(a, ITERS))
         record("ns_sqrtm_yz", name, a, ms, plain_ms,
@@ -277,7 +317,10 @@ def _kernel_phase():
     for kname, st in stats.items():
         print(f"{kname} per step (the four groups): kernel {st['ms']:.4f} ms, plain "
               f"{st['plain_ms']:.4f} ms, bound {st['bound_ms']:.4f} ms "
-              f"({st['bound_ms'] / st['ms']:.1%} of the bound)")
+              f"({st['bound_ms'] / st['ms']:.1%} of the bound; FP32-FMA bound "
+              f"{st['fp32_fma_bound_ms']:.4f} ms)")
+        if not st["bound_ms"] <= st["ms"]:
+            raise AssertionError(f"{kname}: per-step time below its bound")
     return stats
 
 
@@ -377,8 +420,7 @@ def _steady_phase(content_path, style_path):
             wall_us = (time.perf_counter() - t0) * 1e6
         kernels = [e for e in prof.events() if e.device_type == cuda]
         busy_us = sum(e.time_range.elapsed_us() for e in kernels)
-        ns_us = sum(e.time_range.elapsed_us() for e in kernels
-                    if "ns_gemm_kernel" in e.name or "_init_kernel" in e.name)
+        ns_us = sum(e.time_range.elapsed_us() for e in kernels if KERNEL_PREFIX in e.name)
         profiled = (f"busy share {busy_us / wall_us:.2f}, kernel time "
                     f"{busy_us / 5e3:.2f} ms/iter of which NS kernels "
                     f"{ns_us / 5e3:.2f} ms/iter" if kernels else
@@ -515,6 +557,7 @@ def main():
         "ms": stats[name]["ms"],
         "plain_ms": stats[name]["plain_ms"],
         "bound_ms": stats[name]["bound_ms"],
+        "fp32_fma_bound_ms": stats[name]["fp32_fma_bound_ms"],
         "bound_by": "operations",
         "library_ms": None,  # no single PyTorch call computes these functions
     } for name, (_, _, replaces) in KERNELS.items()]}))

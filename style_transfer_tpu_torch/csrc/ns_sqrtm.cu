@@ -1,5 +1,5 @@
-// Newton-Schulz matrix square root and its Lyapunov backward, FP32, for
-// Hopper (sm_90a).
+// Newton-Schulz matrix square root and its Lyapunov backward, FP32
+// accuracy, for Hopper (sm_90a).
 //
 // Replaces the three TPU kernels of style_transfer_tpu/ops/pallas/ns_sqrtm.py:
 //
@@ -9,10 +9,13 @@
 //          n = ||A||_F,  Y_0 = A / n,  Z_0 = I
 //          repeat num_iters times:  T = (3I - Z Y) / 2,  Y <- Y T,  Z <- T Z
 //          emit Y * sqrt(n) ~ A^{1/2}  and  Z / sqrt(n) ~ A^{-1/2}
+//      The first iteration's products by Z_0 = I are not formed:
+//      T_0 = (3I - Y_0) / 2 elementwise, Y_1 = Y_0 T_0, Z_1 = T_0, exactly
+//      the plain FP32 chain's values (I X = X bit for bit there):
+//      3 num_iters - 2 products per matrix.
 //   B2 `_ns_fwd_kernel` (reached through `sqrtm_ns_pallas`, the forward of
 //      `sqrtm_ns_lyap_pallas`): stt_ns_sqrtm_f32, the same chain emitting only
-//      Y * sqrt(n). The Z product of the last iteration is dead and skipped:
-//      3 num_iters - 1 products per matrix.
+//      Y * sqrt(n); the last Z product is dead and skipped: 3 num_iters - 3.
 //   B3 `_lyap_bwd_kernel` (reached through `_lyap_pallas`, the backward of
 //      `sqrtm_ns_lyap_pallas`): stt_lyap_bwd_f32 solves Z Q + Q Z = G:
 //          n = ||Z||_F,  a = Z / n,  q = G / n
@@ -20,65 +23,123 @@
 //                                   q <- (q E - a^T (a^T q - q a)) / 2,
 //                                   a <- a E / 2
 //          emit q / 2
-//      Six products per iteration; the a product of the last iteration is
-//      dead and skipped: 6 num_iters - 1 products per matrix.
+//      Six products per iteration, the last a product dead: 6 num_iters - 1.
 //
-// What bounds them on this card: FP32 FMA throughput (67 TFLOP/s outside the
-// tensor cores); the bytes (each input read once, each output written once)
-// are under 2 us at every shape. The W2 loss runs one call per channel
-// group every step (C=64, 128, 256 with G=1 and C=512 with G=2), at 12
-// iterations: B1 does 20.7 GFLOP per step (0.31 ms at the peak), B2 20.1
-// GFLOP (0.30 ms), B3 40.8 GFLOP (0.61 ms); per call at (2, 512, 512) the
-// bounds are 0.289, 0.280 and 0.569 ms. Tensor-core TF32 is ruled out: the
-// iteration diverges under single-pass low-precision products (the JAX
-// package emulates f32 with three bf16 passes for the same reason). Every
-// product here is an FP32 FMA.
+// Arithmetic: every product is 3xTF32 on the tensor cores (ns_common.cuh):
+// each FP32 operand is split into a TF32 head (cvt.rna) and the TF32-rounded
+// remainder, and a b ~ hi hi + hi lo + lo hi, the JAX kernel's own bf16x3
+// scheme with TF32 in place of bf16. Single-pass TF32 is not used: NS
+// diverges under one low-precision pass. The tensor core's FP32
+// accumulation truncates, and over a whole k-chain its bias grows with C
+// (on the card it took Y past the 1e-4 limit at C=512),
+// so each 16-deep k-tile is summed in a fresh partial and added to the
+// accumulator with an IEEE FP32 add. Each output element is summed in a
+// fixed k order (no split-K, no atomics), so results are deterministic.
 //
-// Design. At C=512 the iteration state is several MB, far beyond the 227 KB
-// of shared memory a block can use, so the TPU kernels' one-resident-tile
-// design does not transfer. Each chain is instead a sequence of batched,
-// tiled FP32 GEMM launches on the caller's stream, all through one GEMM
-// kernel (ns_gemm_kernel):
-//   - a prologue kernel, one block per matrix, reduces the Frobenius norm in
-//     shared memory (fixed order, no atomics) and writes the start state;
-//   - each launch runs up to two tasks per matrix, blockIdx.z picking the
-//     matrix and the task, so independent products share a launch and more
-//     blocks are in flight. A task is one product or the difference of two
-//     (P Q - R S, two accumulators subtracted in the epilogue, as the plain
-//     version rounds two matmuls and then subtracts); either left operand
-//     may be read transposed (by index: the code never assumes symmetry);
-//     the epilogue applies d I - x, a scale and the sqrt(n) factor;
-//   - NS: per iteration, T = (3I - Z Y) * 0.5, then Y' = Y T and Z' = T Z in
-//     one launch; the last launch scales by sqrt(n) and 1/sqrt(n).
-//   - Lyapunov: per iteration, E = 3I - a a and D = a^T q - q a in one
-//     launch, then q' = (q E - a^T D) * 0.5 and a' = (a E) * 0.5 in the next;
-//     the last iteration writes only q', scaled by 0.25 (both halvings are
-//     exact powers of two).
-//   Outputs of a launch go to ping-pong buffers, since blocks of the same
-//   launch still read its inputs; the start buffer is chosen so that the
-//   last iteration lands in the caller's output.
-// Each GEMM block computes a 64x64 output tile with 256 threads holding 4x4
-// accumulators in registers; k-tiles of 16 are staged through shared memory
-// (the left operand stored k-major, so both operands are read as float4)
-// and the next k-tile is prefetched into registers while the current one is
-// consumed. Ragged edges are masked, so any C >= 1 works. Every output
-// element sums its products in increasing k, so results are deterministic.
+// What bounds them. Per step (C = 64, 128, 256 with G = 1 and C = 512
+// with G = 2, 12 iterations) B1 needs 19.6 GFLOP, B2 19.0, B3 40.8. On the
+// tensor-core route that is 3 x FLOP over 495 TFLOP/s (wgmma's dense TF32
+// peak), 0.12, 0.12 and 0.25 ms; the bytes are under 2 us at every shape.
+// mma.sync itself peaks at about 310 TFLOP/s TF32 on the H100
+// (tools/mma_sync_rate.cu), so this route's own ceiling is about 1.6x
+// that bound. C = 512 carries 93% of the work; at C <= 256 a call is
+// bound by fill and by a fixed cost per product (the stage pipeline's
+// start and drain, the warpgroups' reduction, the epilogue, the barrier).
+//
+// Every chain is one plan (ns_plan, lyap_plan): a prologue (the Frobenius
+// norm, then the start state), then a sequence of batched GEMM steps, each
+// of up to two tasks per matrix; a task is one product or the difference of
+// two (the difference of two rounded products, as the plain version
+// takes it), a left operand may be read
+// transposed (by index into a k-major tile: ldmatrix.trans does not take
+// 32-bit elements; nothing assumes symmetry), and the epilogue applies
+// d I - x, a scale and the sqrt(n) factor. NS per iteration: T = (3I - Z Y)
+// / 2, then Y' = Y T and Z' = T Z. Lyapunov: E = 3I - a a and D = a^T q -
+// q a, then q' = (q E - a^T D) / 2 and a' = a E / 2, the last q' scaled by
+// 1/4. Results go to ping-pong buffers (the caller's scratch), the start
+// chosen so that the last one lands in the output. A / n is never stored:
+// the Y_1 step divides its left operand by n as it reads it. A GEMM tile
+// stages k-slices of both operands through shared memory with cp.async,
+// the next slices' copies in flight during the current MMAs; a warp owns a
+// 32x32 sub-tile. Two executors run a plan, split at kClusterMaxC = 256
+// (ns_common.cuh); a ragged C takes the one its size selects, with masked
+// edges:
+//   - GEMM regime, C > 256: one launch per step on the caller's stream. The
+//     norm is spread over kNormBlocks blocks per matrix (float4 loads, one
+//     partial each, summed in a fixed order by the start kernel). A block
+//     computes a 64x64 tile with one warpgroup over three 16-deep stages,
+//     so a step at (2, 512, 512) has 128 blocks (one task) or 256 (two
+//     tasks) on 132 SMs. On the card, deeper stages, two warpgroups
+//     splitting k, and a two-block cluster splitting k per tile were each
+//     slower (PERF.md).
+//   - Cluster regime, C <= 256: one launch per call (per 48 steps: 24
+//     iterations), one thread-block cluster per matrix, each block owning
+//     one output tile (64x64 for C > 128, 32x32 for C <= 128; up to 16
+//     blocks, a non-portable cluster size); cluster.sync() takes the place
+//     of the launch boundaries between steps. Thread 0 records the plan's
+//     steps into a table in shared memory and the block executes them, so
+//     the plan's own state stays out of the tile's registers (run in
+//     place, it spilled them). With so few blocks, each has two
+//     warpgroups that split every 32-deep stage's k and add their sums in a
+//     fixed order. The iteration state stays in the caller's scratch
+//     buffers, L2-resident at these sizes (1 MB at C=256), not in
+//     distributed shared memory: a version that held it there and read the
+//     peers' rows through map_shared_rank was slower on the card.
 
-#include <cuda_runtime.h>
+#include <cooperative_groups.h>
 
+#include <mutex>
+#include <vector>
+
+#include "ns_common.cuh"
+
+namespace cg = cooperative_groups;
+
+namespace stt {
 namespace {
 
-constexpr int kTile = 64;     // output tile edge (BM = BN)
-constexpr int kDepth = 16;    // k-tile depth (BK)
-constexpr int kThreads = 256; // 16 x 16 threads, 4 x 4 outputs each
-constexpr int kPad = 4;       // keeps float4 alignment, eases store conflicts
-constexpr int kInitThreads = 512;
+constexpr int kBK = 16;     // k-depth of one partial sum (see the note above)
+constexpr int kStages = 3;  // cp.async stages
+constexpr int kNormThreads = 256;
+constexpr int kStartBlocks = 64;  // blocks per matrix of the start kernels
 
-// One product of a task: a (or a^T when trans_a) times b, C x C each.
+constexpr int cmax(int a, int b) { return a > b ? a : b; }
+
+// One output tile of kTile x kTile computed by kGroups warpgroups: each
+// warpgroup's 4 warps own kTile/2 x kTile/2 each, and the warpgroups take
+// equal kBK-deep shares of every stage's k.
+template <int kTile_, int kGroups_>
+struct Cfg {
+  static constexpr int kTile = kTile_, kGroups = kGroups_;
+  static constexpr int kThreads = 128 * kGroups;
+  static constexpr int kDepth = kBK * kGroups;  // k-depth of a stage
+  static constexpr int kMT = kTile / 2 / 16;    // 16-row mma tiles per warp
+  static constexpr int kNT = kTile / 2 / 8;     // 8-column mma tiles per warp
+  static constexpr int kLdA = kDepth + 4;  // row-major left tile [m][k]: conflict-free
+  static constexpr int kLdK = kTile + 8;   // k-major tiles [k][m or n]: conflict-free
+  static constexpr int kA = cmax(kTile * kLdA, kDepth * kLdK);  // floats of a left tile
+  static constexpr int kStage = kA + kDepth * kLdK;             // floats of a stage
+  static constexpr int kLdR = kTile + 8;  // a tile of sums exchanged through shared memory
+  static constexpr int kSmemBytes = 4 * cmax(kStages * kStage, kTile * kLdR);
+  static_assert(kTile * kDepth % (4 * kThreads) == 0, "whole float4 copies per thread");
+};
+
+// GEMM regime (C > kClusterMaxC): 64x64 tiles of one warpgroup, so a step
+// at (2, 512, 512) has 128 blocks (one task) or 256 (two tasks).
+using GemmCfg = Cfg<64, 1>;
+static_assert(GemmCfg::kSmemBytes <= 48 * 1024, "launched without a shared memory attribute");
+// Cluster regime: at most 16 blocks a matrix, so two warpgroups a block.
+template <int kTile>
+using ClusterCfg = Cfg<kTile, 2>;
+
+// One product of a task: op(a) times b, C x C each. op(a)(r, k) is
+// a[k n + r] when trans_a, else a[r n + k] divided by the matrix's norm
+// when scale_a (Y_0 = A / n read from A).
 struct Term {
   const float* a;
   const float* b;
-  int trans_a;  // 1: element (r, k) of the left operand is a[k n + r]
+  int trans_a;
+  int scale_a;
 };
 
 // Result = term[0] (- term[1] when nterms == 2); then, in this order:
@@ -93,8 +154,8 @@ struct Task {
   int norm_op;
 };
 
-// One launch: blockIdx.z = g * ntask + task; every pointer is offset to
-// matrix g.
+// One GEMM step: every pointer is offset to matrix g; the norm of matrix
+// g is norm[g * kNormSlots].
 struct Launch {
   Task task[2];
   int ntask;
@@ -102,313 +163,790 @@ struct Launch {
   int n;
 };
 
-using SmemTile = float[kDepth][kTile + kPad];
+template <int kTile>
+using Acc = float[kTile / 32][kTile / 16][4];  // [m tile][n tile][element] of a warp
 
-// ||x||_F of one n*n matrix, reduced by the whole block in a fixed order;
-// every thread returns it.
-__device__ float block_fro_norm(const float* __restrict__ x, size_t nn,
-                                float* red) {
-  float s = 0.f;
-  for (size_t i = threadIdx.x; i < nn; i += kInitThreads) {
-    const float v = x[i];
-    s = fmaf(v, v, s);
-  }
-  red[threadIdx.x] = s;
-  __syncthreads();
-  for (int w = kInitThreads / 2; w > 0; w >>= 1) {
-    if (threadIdx.x < w) red[threadIdx.x] += red[threadIdx.x + w];
-    __syncthreads();
-  }
-  return sqrtf(red[0]);
+template <int kTile>
+__device__ __forceinline__ void zero(Acc<kTile>& acc) {
+#pragma unroll
+  for (int mi = 0; mi < kTile / 32; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < kTile / 16; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
 }
 
-// NS start state: Y_0 = A / n, Z_0 = I (one block per matrix).
-__global__ void __launch_bounds__(kInitThreads)
-ns_init_kernel(const float* __restrict__ a, float* __restrict__ y0,
-               float* __restrict__ z0, float* __restrict__ norm, int n,
-               int finalize) {
-  __shared__ float red[kInitThreads];
-  const size_t nn = static_cast<size_t>(n) * n;
-  const size_t off = static_cast<size_t>(blockIdx.x) * nn;
-  const float* ag = a + off;
-  const float nrm = block_fro_norm(ag, nn, red);
-  const float sn = sqrtf(nrm);
-  if (threadIdx.x == 0) norm[blockIdx.x] = nrm;
-  for (size_t i = threadIdx.x; i < nn; i += kInitThreads) {
-    float yv = ag[i] / nrm;
-    float zv = (i / n == i % n) ? 1.f : 0.f;
-    if (finalize) {  // num_iters == 0: the start state is the result
-      yv *= sn;
-      zv /= sn;
-    }
-    y0[off + i] = yv;
-    z0[off + i] = zv;
-  }
+__device__ __forceinline__ float* dyn_smem() {
+  extern __shared__ __align__(16) float smem[];
+  return smem;
 }
 
-// Lyapunov start state: a_0 = Z / n, q_0 = G / n (one block per matrix).
-__global__ void __launch_bounds__(kInitThreads)
-lyap_init_kernel(const float* __restrict__ z, const float* __restrict__ gr,
-                 float* __restrict__ a0, float* __restrict__ q0,
-                 float* __restrict__ norm, int n, int finalize) {
-  __shared__ float red[kInitThreads];
-  const size_t nn = static_cast<size_t>(n) * n;
-  const size_t off = static_cast<size_t>(blockIdx.x) * nn;
-  const float nrm = block_fro_norm(z + off, nn, red);
-  if (threadIdx.x == 0) norm[blockIdx.x] = nrm;
-  for (size_t i = threadIdx.x; i < nn; i += kInitThreads) {
-    a0[off + i] = z[off + i] / nrm;
-    float qv = gr[off + i] / nrm;
-    if (finalize) qv *= 0.5f;  // num_iters == 0: emit q_0 / 2
-    q0[off + i] = qv;
-  }
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
 }
 
-// acc += op(A) B over the 64x64 output tile at (row0, col0).
-template <bool kTransA>
-__device__ __forceinline__ void gemm_accumulate(
-    const float* __restrict__ A, const float* __restrict__ B, int n, int row0,
-    int col0, float (&acc)[4][4], SmemTile& as, SmemTile& bs) {
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int kPending>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Starts the copies of the stage at k0 (kDepth deep) of op(A) (kTile rows)
+// and B (kTile columns); out-of-range elements are zero-filled. With
+// C % 4 == 0 every row is 16-byte aligned and copied as float4.
+template <class Cf, bool kTransA>
+__device__ __forceinline__ void load_tiles(float* as, float* bs, const float* A,
+                                           const float* B, int n, int row0, int col0,
+                                           int k0, bool vec) {
+  constexpr int kTile = Cf::kTile, kLdK = Cf::kLdK, kLdA = Cf::kLdA, kDepth = Cf::kDepth;
+  constexpr int kThreads = Cf::kThreads;
+  constexpr int kVec = kTile * kDepth / 4 / kThreads;  // float4 per thread and operand
+  constexpr int kQ = kDepth / 4;                       // float4 per left row
   const int tid = threadIdx.x;
-  const int tx = tid % 16;  // output columns col0 + 4 tx .. +3
-  const int ty = tid / 16;  // output rows    row0 + 4 ty .. +3
-
-  // Global -> register mapping of one k-tile. The left tile is 64 rows x 16
-  // k: read directly, each thread takes 4 consecutive k of one row; read
-  // transposed, each thread takes 4 consecutive rows of one k (contiguous in
-  // memory, since op(A)(r, k) = A[k n + r]). The right tile is 16 k x 64
-  // columns, each thread 4 consecutive columns of one k-row.
-  const int a_r = kTransA ? (tid % 16) * 4 : tid / 4;
-  const int a_k = kTransA ? tid / 16 : (tid % 4) * 4;
-  const int b_k = tid / 16, b_c = (tid % 16) * 4;
-  float ra[4], rb[4];
-
-  auto load_tile = [&](int k0) {
+  if (vec) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int i = 0; i < kVec; ++i) {
+      const int q = tid + i * kThreads;
       if (kTransA) {
-        const int r = row0 + a_r + j, k = k0 + a_k;
-        ra[j] = (r < n && k < n) ? A[static_cast<size_t>(k) * n + r] : 0.f;
+        const int kk = q / (kTile / 4), m = (q % (kTile / 4)) * 4, k = k0 + kk, r = row0 + m;
+        const bool ok = k < n && r < n;
+        cp_async16(as + kk * kLdK + m, ok ? A + static_cast<size_t>(k) * n + r : A, ok);
       } else {
-        const int r = row0 + a_r, k = k0 + a_k + j;
-        ra[j] = (r < n && k < n) ? A[static_cast<size_t>(r) * n + k] : 0.f;
+        const int m = q / kQ, kq = (q % kQ) * 4, r = row0 + m, k = k0 + kq;
+        const bool ok = r < n && k < n;
+        cp_async16(as + m * kLdA + kq, ok ? A + static_cast<size_t>(r) * n + k : A, ok);
       }
+      const int kk = q / (kTile / 4), cq = (q % (kTile / 4)) * 4, k = k0 + kk, c = col0 + cq;
+      const bool ok = k < n && c < n;
+      cp_async16(bs + kk * kLdK + cq, ok ? B + static_cast<size_t>(k) * n + c : B, ok);
     }
-    const int kb = k0 + b_k;
+  } else {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = col0 + b_c + j;
-      rb[j] = (kb < n && c < n) ? B[static_cast<size_t>(kb) * n + c] : 0.f;
+    for (int i = 0; i < 4 * kVec; ++i) {
+      const int q = tid + i * kThreads;
+      if (kTransA) {
+        const int kk = q / kTile, m = q % kTile, k = k0 + kk, r = row0 + m;
+        const bool ok = k < n && r < n;
+        cp_async4(as + kk * kLdK + m, ok ? A + static_cast<size_t>(k) * n + r : A, ok);
+      } else {
+        const int m = q / kDepth, kq = q % kDepth, r = row0 + m, k = k0 + kq;
+        const bool ok = r < n && k < n;
+        cp_async4(as + m * kLdA + kq, ok ? A + static_cast<size_t>(r) * n + k : A, ok);
+      }
+      const int kk = q / kTile, cq = q % kTile, k = k0 + kk, c = col0 + cq;
+      const bool ok = k < n && c < n;
+      cp_async4(bs + kk * kLdK + cq, ok ? B + static_cast<size_t>(k) * n + c : B, ok);
     }
+  }
+}
+
+// The warp's sub-tile origin (wm, wn) and its warpgroup.
+template <int kTile>
+__device__ __forceinline__ void warp_place(int& wm, int& wn, int& group) {
+  const int warp = threadIdx.x >> 5;
+  group = warp >> 2;
+  wm = ((warp >> 1) & 1) * (kTile / 2);
+  wn = (warp & 1) * (kTile / 2);
+}
+
+// acc += op(A) B over the warpgroup's kBK-deep share of one stage, the
+// warp's sub-tile. The share's products go into a fresh partial sum that
+// is then added to acc with an IEEE FP32 add (see the note above on the
+// tensor core's accumulation).
+template <class Cf, bool kTransA, bool kScaleA>
+__device__ __forceinline__ void mma_stage(Acc<Cf::kTile>& acc, const float* as,
+                                          const float* bs, float nrm) {
+  constexpr int kTile = Cf::kTile, kMT = Cf::kMT, kNT = Cf::kNT, kLdK = Cf::kLdK;
+  constexpr int kLdA = Cf::kLdA;
+  const int lane = threadIdx.x & 31;
+  int wm, wn, group;
+  warp_place<kTile>(wm, wn, group);
+  Acc<kTile> part;
+  zero<kTile>(part);
+#pragma unroll
+  for (int s8 = 0; s8 < kBK; s8 += 8) {
+    const int ks = group * kBK + s8;
+    FragA fa[kMT];
+#pragma unroll
+    for (int mi = 0; mi < kMT; ++mi) {
+      fa[mi] = load_frag_a(
+          [&](int r, int k) {
+            const int m = wm + mi * 16 + r, kk = ks + k;
+            const float v = kTransA ? as[kk * kLdK + m] : as[m * kLdA + kk];
+            return kScaleA ? v / nrm : v;
+          },
+          lane);
+    }
+#pragma unroll
+    for (int ni = 0; ni < kNT; ++ni) {
+      const FragB fb = load_frag_b(
+          [&](int k, int c) { return bs[(ks + k) * kLdK + wn + ni * 8 + c]; }, lane);
+#pragma unroll
+      for (int mi = 0; mi < kMT; ++mi) mma_3xtf32(part[mi][ni], fa[mi], fb);
+    }
+  }
+#pragma unroll
+  for (int mi = 0; mi < kMT; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < kNT; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] += part[mi][ni][e];
+}
+
+// acc = op(A) B over the tile at (row0, col0), in warpgroup 0's threads:
+// each warpgroup sums its shares of the stages in increasing k, then
+// warpgroup 0 adds warpgroup 1's sum to its own (a fixed order).
+template <class Cf, bool kTransA, bool kScaleA>
+__device__ __forceinline__ void gemm_term(Acc<Cf::kTile>& acc, const float* A, const float* B,
+                                          int n, int row0, int col0, float nrm, float* smem) {
+  constexpr int kTile = Cf::kTile, kDepth = Cf::kDepth;
+  auto sa = [&](int s) { return smem + s * Cf::kStage; };
+  auto sb = [&](int s) { return smem + s * Cf::kStage + Cf::kA; };
+  zero<kTile>(acc);
+  const bool vec = (n & 3) == 0;
+  const int nk = (n + kDepth - 1) / kDepth;
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nk)
+      load_tiles<Cf, kTransA>(sa(s), sb(s), A, B, n, row0, col0, s * kDepth, vec);
+    cp_commit();
+  }
+#pragma unroll 1
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_wait<kStages - 2>();  // k-tile kt has landed (this thread's copies)
+    __syncthreads();         // ... everyone's; and stage kt - 1 is consumed
+    const int pre = kt + kStages - 1;
+    if (pre < nk) {
+      load_tiles<Cf, kTransA>(sa(pre % kStages), sb(pre % kStages), A, B, n, row0, col0,
+                              pre * kDepth, vec);
+    }
+    cp_commit();
+    mma_stage<Cf, kTransA, kScaleA>(acc, sa(kt % kStages), sb(kt % kStages), nrm);
+  }
+  cp_wait<0>();
+  __syncthreads();  // the stages are free for the next term
+  if (Cf::kGroups == 1) return;
+  // The stages hold the reduction of warpgroup 1's sum into warpgroup 0's.
+  constexpr int kLdR = Cf::kLdR;
+  const int lane = threadIdx.x & 31;
+  int wm, wn, group;
+  warp_place<kTile>(wm, wn, group);
+  auto slot = [&](int mi, int ni, int e) -> float& {
+    return smem[(wm + mi * 16 + acc_row(lane, e)) * kLdR + wn + ni * 8 + acc_col(lane, e)];
+  };
+#pragma unroll
+  for (int mi = 0; mi < Cf::kMT; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < Cf::kNT; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (group == 1) slot(mi, ni, e) = acc[mi][ni][e];
+  __syncthreads();
+#pragma unroll
+  for (int mi = 0; mi < Cf::kMT; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < Cf::kNT; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (group == 0) acc[mi][ni][e] += slot(mi, ni, e);
+  __syncthreads();  // the stages are free for the next term
+}
+
+template <class Cf>
+__device__ __forceinline__ void run_term(const Term& t, size_t off, int n, int row0,
+                                         int col0, float nrm, Acc<Cf::kTile>& acc,
+                                         float* smem) {
+  if (t.trans_a) {
+    gemm_term<Cf, true, false>(acc, t.a + off, t.b + off, n, row0, col0, nrm, smem);
+  } else if (t.scale_a) {
+    gemm_term<Cf, false, true>(acc, t.a + off, t.b + off, n, row0, col0, nrm, smem);
+  } else {
+    gemm_term<Cf, false, false>(acc, t.a + off, t.b + off, n, row0, col0, nrm, smem);
+  }
+}
+
+// Task T of step L for matrix g over the tile at (row0, col0). A
+// two-term task stores its first product to the output tile and reads it
+// back (the same thread, the same element) once the second is done: one
+// accumulator is live (two held 255 registers and spilled), and the
+// difference is still taken between two rounded products, as the plain
+// version takes it.
+template <class Cf>
+__device__ __forceinline__ void gemm_tile(const Launch& L, const Task& T, int g, int row0,
+                                          int col0, float* smem) {
+  constexpr int kTile = Cf::kTile, kMT = Cf::kMT, kNT = Cf::kNT;
+  const int n = L.n;
+  const size_t off = static_cast<size_t>(g) * n * n;
+  const int lane = threadIdx.x & 31;
+  int wm, wn, group;
+  warp_place<kTile>(wm, wn, group);
+  // The task's fields and the norm are read where they are used, which
+  // keeps them out of the registers that the main loop needs.
+  auto norm = [&] { return __ldcg(L.norm + g * kNormSlots); };
+  // f(element, row, column, output address) over the accumulator's
+  // elements inside the output, in warpgroup 0, which holds the sums.
+  auto each = [&](Acc<Cf::kTile>& acc, auto f) {  // (Acc<kTile> here crashes cudafe++ 12.9)
+    if (group != 0) return;
+    float* __restrict__ C = T.c + off;
+#pragma unroll
+    for (int mi = 0; mi < kMT; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < kNT; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = row0 + wm + mi * 16 + acc_row(lane, e);
+          const int c = col0 + wn + ni * 8 + acc_col(lane, e);
+          if (r < n && c < n) f(acc[mi][ni][e], r, c, C + static_cast<size_t>(r) * n + c);
+        }
   };
 
-  load_tile(0);
-  for (int k0 = 0; k0 < n; k0 += kDepth) {
-    if (kTransA) {
-      *reinterpret_cast<float4*>(&as[a_k][a_r]) =
-          make_float4(ra[0], ra[1], ra[2], ra[3]);
-    } else {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) as[a_k + j][a_r] = ra[j];
-    }
-    *reinterpret_cast<float4*>(&bs[b_k][b_c]) =
-        make_float4(rb[0], rb[1], rb[2], rb[3]);
-    __syncthreads();
-    if (k0 + kDepth < n) load_tile(k0 + kDepth);  // overlaps the FMAs below
-#pragma unroll
-    for (int k = 0; k < kDepth; ++k) {
-      const float4 av = *reinterpret_cast<const float4*>(&as[k][ty * 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(&bs[k][tx * 4]);
-      const float am[4] = {av.x, av.y, av.z, av.w};
-      const float bn[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(am[i], bn[j], acc[i][j]);
-    }
-    __syncthreads();
+  Acc<kTile> acc;
+  run_term<Cf>(T.term[0], off, n, row0, col0, T.term[0].scale_a ? norm() : 1.f, acc, smem);
+  if (T.nterms == 2) {
+    each(acc, [](float v, int, int, float* out) { *out = v; });
+    run_term<Cf>(T.term[1], off, n, row0, col0, T.term[1].scale_a ? norm() : 1.f, acc, smem);
   }
+  const bool two = T.nterms == 2;
+  const float sn = (T.norm_op != 0) ? sqrtf(norm()) : 1.f;
+  each(acc, [&](float v, int r, int c, float* out) {
+    if (two) v = *out - v;
+    if (T.diag != 0.f) v = (r == c ? T.diag : 0.f) - v;
+    v *= T.scale;
+    if (T.norm_op == 1) {
+      v *= sn;
+    } else if (T.norm_op == 2) {
+      v /= sn;
+    }
+    *out = v;
+  });
 }
 
-__device__ __forceinline__ void accumulate_term(const Term& t, size_t off,
-                                                int n, int row0, int col0,
-                                                float (&acc)[4][4],
-                                                SmemTile& as, SmemTile& bs) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  if (t.trans_a) {
-    gemm_accumulate<true>(t.a + off, t.b + off, n, row0, col0, acc, as, bs);
-  } else {
-    gemm_accumulate<false>(t.a + off, t.b + off, n, row0, col0, acc, as, bs);
-  }
-}
-
-// kMaxTerms = 1 for launches whose tasks are single products (the NS chain),
-// 2 where a task may subtract a second product (the Lyapunov chain): the
-// second accumulator costs 16 registers a thread, which the NS chain does
-// not pay.
-template <int kMaxTerms>
-__global__ void __launch_bounds__(kThreads) ns_gemm_kernel(const Launch L) {
-  __shared__ __align__(16) SmemTile as;  // as[k][m]
-  __shared__ __align__(16) SmemTile bs;  // bs[k][n]
-
-  const int n = L.n;
+// GEMM regime: one step, blockIdx.z = g * ntask + task.
+__global__ void __launch_bounds__(GemmCfg::kThreads, 2) stt_nsk_gemm(const Launch L) {
   const int g = blockIdx.z / L.ntask;
-  const Task T = (blockIdx.z % L.ntask == 0) ? L.task[0] : L.task[1];
-  const size_t off = static_cast<size_t>(g) * n * n;
-  const int row0 = blockIdx.y * kTile;
-  const int col0 = blockIdx.x * kTile;
+  const Task& T = (blockIdx.z % L.ntask == 0) ? L.task[0] : L.task[1];
+  gemm_tile<GemmCfg>(L, T, g, blockIdx.y * GemmCfg::kTile, blockIdx.x * GemmCfg::kTile,
+                     dyn_smem());
+}
 
-  float acc[4][4];
-  accumulate_term(T.term[0], off, n, row0, col0, acc, as, bs);
-  float acc2[4][4];
-  if (kMaxTerms == 2 && T.nterms == 2) {
-    accumulate_term(T.term[1], off, n, row0, col0, acc2, as, bs);
+// Sum of squares of x[begin, end) in a fixed order (a thread's stride
+// order, a fixed shuffle tree per warp, the warps in order); the block's
+// total is returned to thread 0. float4 loads when x and the range are
+// 16-byte aligned.
+template <int kThreads>
+__device__ float block_sum_squares(const float* __restrict__ x, size_t begin, size_t end,
+                                   bool vec) {
+  float s = 0.f;
+  if (vec) {
+    const float4* x4 = reinterpret_cast<const float4*>(x);
+    for (size_t i = begin / 4 + threadIdx.x; i < end / 4; i += kThreads) {
+      const float4 v = x4[i];
+      s = fmaf(v.x, v.x, s);
+      s = fmaf(v.y, v.y, s);
+      s = fmaf(v.z, v.z, s);
+      s = fmaf(v.w, v.w, s);
+    }
+  } else {
+    for (size_t i = begin + threadIdx.x; i < end; i += kThreads) s = fmaf(x[i], x[i], s);
   }
+  __shared__ float red[kThreads / 32];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = s;
+  __syncthreads();
+  float t = 0.f;
+  if (threadIdx.x == 0)
+    for (int w = 0; w < kThreads / 32; ++w) t += red[w];
+  return t;
+}
 
-  const float sn = (T.norm_op != 0) ? sqrtf(L.norm[g]) : 1.f;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float* __restrict__ C = T.c + off;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + ty * 4 + i;
-    if (r >= n) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = col0 + tx * 4 + j;
-      if (c >= n) continue;
-      float v = acc[i][j];
-      if (kMaxTerms == 2 && T.nterms == 2) v -= acc2[i][j];
-      if (T.diag != 0.f) v = (r == c ? T.diag : 0.f) - v;
-      v *= T.scale;
-      if (T.norm_op == 1) {
-        v *= sn;
-      } else if (T.norm_op == 2) {
-        v /= sn;
-      }
-      C[static_cast<size_t>(r) * n + c] = v;
+// The range [begin, end) of part p of `parts` of an n*n matrix; with
+// float4 loads, the parts are cut on multiples of 4.
+__device__ __forceinline__ void part_range(size_t nn, int parts, int p, bool vec,
+                                           size_t& begin, size_t& end) {
+  const size_t unit = vec ? 4 : 1, units = nn / unit;
+  const size_t chunk = (units + parts - 1) / parts;
+  begin = static_cast<size_t>(p) * chunk * unit;
+  end = static_cast<size_t>(p + 1) * chunk * unit;
+  if (begin > nn) begin = nn;
+  if (end > nn) end = nn;
+}
+
+// ||x||_F of matrix g from its `parts` partials, summed in order.
+__device__ __forceinline__ float norm_from_partials(const float* norm, int g, int parts) {
+  float s = 0.f;
+  for (int b = 0; b < parts; ++b) s += __ldcg(norm + g * kNormSlots + 1 + b);
+  return sqrtf(s);
+}
+
+// NS start over elements i = begin, begin + stride, ... of the matrix at
+// off. num_iters == 0: out0 = (A / n) sqrt(n) and, if out1, out1 = I /
+// sqrt(n). Otherwise out0 = T_0 = (3I - A / n) / 2 and, if out1,
+// out1 = Z_1 = T_0 (divided by sqrt(n) when z_last).
+__device__ __forceinline__ void ns_start_elems(const float* __restrict__ a, float nrm,
+                                               float* __restrict__ out0,
+                                               float* __restrict__ out1, size_t off, int n,
+                                               int num_iters, int z_last, size_t begin,
+                                               size_t stride) {
+  const float sn = sqrtf(nrm);
+  const size_t nn = static_cast<size_t>(n) * n;
+  for (size_t i = begin; i < nn; i += stride) {
+    const bool diag = i / n == i % n;
+    const float y0 = a[off + i] / nrm;
+    if (num_iters == 0) {
+      out0[off + i] = y0 * sn;
+      if (out1 != nullptr) out1[off + i] = (diag ? 1.f : 0.f) / sn;
+    } else {
+      const float t0 = ((diag ? 3.f : 0.f) - y0) * 0.5f;
+      out0[off + i] = t0;
+      if (out1 != nullptr) out1[off + i] = z_last ? t0 / sn : t0;
     }
   }
 }
 
-Task product(const float* a, const float* b, float* c, float scale = 1.f,
-             int norm_op = 0) {
-  return Task{{Term{a, b, 0}, Term{nullptr, nullptr, 0}}, 1, c, 0.f, scale,
-              norm_op};
+// Lyapunov start: a_0 = Z / n, q_0 = G / n (q_0 / 2 when num_iters == 0:
+// the result).
+__device__ __forceinline__ void lyap_start_elems(const float* __restrict__ z,
+                                                 const float* __restrict__ gr, float nrm,
+                                                 float* __restrict__ a0,
+                                                 float* __restrict__ q0, size_t off, int n,
+                                                 int num_iters, size_t begin, size_t stride) {
+  const size_t nn = static_cast<size_t>(n) * n;
+  for (size_t i = begin; i < nn; i += stride) {
+    a0[off + i] = z[off + i] / nrm;
+    const float qv = gr[off + i] / nrm;
+    q0[off + i] = num_iters == 0 ? qv * 0.5f : qv;
+  }
 }
 
-template <int kMaxTerms>
-cudaError_t run(const Launch& l, int g, cudaStream_t stream) {
-  const int tiles = (l.n + kTile - 1) / kTile;
-  ns_gemm_kernel<kMaxTerms>
-      <<<dim3(tiles, tiles, g * l.ntask), kThreads, 0, stream>>>(l);
-  return cudaGetLastError();
+// GEMM regime prologue: one partial sum of squares per block, kNormBlocks
+// blocks per matrix (blockIdx.y).
+__global__ void __launch_bounds__(kNormThreads)
+stt_nsk_norm_partials(const float* __restrict__ x, float* __restrict__ norm, int n) {
+  const size_t nn = static_cast<size_t>(n) * n;
+  const bool vec = (nn & 3) == 0;  // every matrix then starts 16-byte aligned
+  size_t begin, end;
+  part_range(nn, kNormBlocks, blockIdx.x, vec, begin, end);
+  const float t = block_sum_squares<kNormThreads>(x + blockIdx.y * nn, begin, end, vec);
+  if (threadIdx.x == 0) norm[blockIdx.y * kNormSlots + 1 + blockIdx.x] = t;
+}
+
+__global__ void __launch_bounds__(kNormThreads)
+stt_nsk_ns_start(const float* __restrict__ a, float* norm, float* __restrict__ out0,
+                 float* __restrict__ out1, int n, int num_iters, int z_last) {
+  const int g = blockIdx.y;
+  const float nrm = norm_from_partials(norm, g, kNormBlocks);
+  if (blockIdx.x == 0 && threadIdx.x == 0) norm[g * kNormSlots] = nrm;
+  ns_start_elems(a, nrm, out0, out1, g * static_cast<size_t>(n) * n, n, num_iters, z_last,
+                 blockIdx.x * kNormThreads + threadIdx.x,
+                 static_cast<size_t>(kStartBlocks) * kNormThreads);
+}
+
+__global__ void __launch_bounds__(kNormThreads)
+stt_nsk_lyap_start(const float* __restrict__ z, const float* __restrict__ gr, float* norm,
+                   float* __restrict__ a0, float* __restrict__ q0, int n, int num_iters) {
+  const int g = blockIdx.y;
+  const float nrm = norm_from_partials(norm, g, kNormBlocks);
+  if (blockIdx.x == 0 && threadIdx.x == 0) norm[g * kNormSlots] = nrm;
+  lyap_start_elems(z, gr, nrm, a0, q0, g * static_cast<size_t>(n) * n, n, num_iters,
+                   blockIdx.x * kNormThreads + threadIdx.x,
+                   static_cast<size_t>(kStartBlocks) * kNormThreads);
+}
+
+__host__ __device__ inline Task product(const float* a, const float* b, float* c,
+                                        float scale = 1.f, int norm_op = 0) {
+  return Task{{Term{a, b, 0, 0}, Term{nullptr, nullptr, 0, 0}}, 1, c, 0.f, scale, norm_op};
+}
+
+__host__ __device__ inline Launch step(const Task& t0, const Task& t1, int ntask,
+                                       const float* norm, int n) {
+  Launch l{};
+  l.task[0] = t0;
+  l.task[1] = t1;
+  l.ntask = ntask;
+  l.norm = norm;
+  l.n = n;
+  return l;
+}
+
+// The NS chain of B1 (emit_z) and B2 (Y only), run by an executor `ex`
+// (HostExec, or RecordExec for the cluster regime). Returns 0 or the
+// first error.
+#pragma nv_exec_check_disable
+template <class Ex>
+__host__ __device__ int ns_plan(Ex& ex, const float* a, float* y, float* z, float* t,
+                                float* y2, float* z2, float* norm, int n, int num_iters,
+                                bool emit_z) {
+  float* ys[2] = {y, y2};
+  float* zs[2] = {z, z2};
+  if (num_iters == 0) return ex.ns_start(a, norm, y, emit_z ? z : nullptr, 0, 0);
+  // Start in the buffer pair that makes the last iteration land in (y, z).
+  int cur = num_iters % 2;
+  {  // The first iteration: T_0 and Z_1 elementwise, then Y_1 = (A / n) T_0.
+    const int nxt = cur ^ 1;
+    const bool last = num_iters == 1;
+    int err = ex.ns_start(a, norm, t, (emit_z || !last) ? zs[nxt] : nullptr, num_iters, last);
+    if (err != 0) return err;
+    Task y1 = product(a, t, ys[nxt], 1.f, last ? 1 : 0);
+    y1.term[0].scale_a = 1;
+    if ((err = ex.gemm(step(y1, y1, 1, norm, n))) != 0) return err;
+    cur = nxt;
+  }
+  for (int it = 1; it < num_iters; ++it) {
+    const int nxt = cur ^ 1;
+    const bool last = it == num_iters - 1;
+    Task tt = product(zs[cur], ys[cur], t, 0.5f);
+    tt.diag = 3.f;  // T = (3I - Z Y) * 0.5
+    int err = ex.gemm(step(tt, tt, 1, norm, n));
+    if (err != 0) return err;
+    const Task ty = product(ys[cur], t, ys[nxt], 1.f, last ? 1 : 0);  // Y T
+    const Task tz = product(t, zs[cur], zs[nxt], 1.f, last ? 2 : 0);  // T Z
+    if ((err = ex.gemm(step(ty, tz, (last && !emit_z) ? 1 : 2, norm, n))) != 0)
+      return err;
+    cur = nxt;
+  }
+  return 0;
+}
+
+// The Lyapunov chain of B3, run by an executor.
+#pragma nv_exec_check_disable
+template <class Ex>
+__host__ __device__ int lyap_plan(Ex& ex, const float* z, const float* gr, float* q,
+                                  float* a, float* a2, float* q2, float* e, float* d,
+                                  float* norm, int n, int num_iters) {
+  float* as[2] = {a, a2};
+  float* qs[2] = {q, q2};
+  int cur = num_iters % 2;  // the last iteration lands in q
+  int err = ex.lyap_start(z, gr, norm, as[cur], qs[cur], num_iters);
+  if (err != 0) return err;
+  for (int it = 0; it < num_iters; ++it) {
+    const int nxt = cur ^ 1;
+    const bool last = it == num_iters - 1;
+    Task te = product(as[cur], as[cur], e);  // E = 3I - a a
+    te.diag = 3.f;
+    const Task td{{Term{as[cur], qs[cur], 1, 0}, Term{qs[cur], as[cur], 0, 0}},
+                  2, d, 0.f, 1.f, 0};  // D = a^T q - q a
+    if ((err = ex.gemm(step(te, td, 2, norm, n))) != 0) return err;
+    const Task tq{{Term{qs[cur], e, 0, 0}, Term{as[cur], d, 1, 0}}, 2, qs[nxt],
+                  0.f, last ? 0.25f : 0.5f, 0};          // q' = (q E - a^T D) / 2
+    const Task ta = product(as[cur], e, as[nxt], 0.5f);  // a' = a E / 2
+    if ((err = ex.gemm(step(tq, ta, last ? 1 : 2, norm, n))) != 0) return err;
+    cur = nxt;
+  }
+  return 0;
+}
+
+// Once per (kernel, device, cluster size cs): allows the kernel its
+// dynamic shared memory and a non-portable cluster size, and checks that
+// one cluster of the launch configuration cfg can be resident. Returns 0,
+// a cudaError_t, or kErrClusterUnschedulable.
+int prepare(const void* kernel, int smem_bytes, int cs, const cudaLaunchConfig_t* cfg) {
+  struct Key {
+    const void* fn;
+    int device, cs, err;
+  };
+  static std::mutex mu;
+  static std::vector<Key> done;
+
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  std::lock_guard<std::mutex> lock(mu);
+  for (const Key& k : done)
+    if (k.fn == kernel && k.device == device && k.cs == cs) return k.err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  int res = static_cast<int>(err);
+  if (err == cudaSuccess) {
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, cfg);
+    res = err != cudaSuccess ? static_cast<int>(err)
+                             : (clusters > 0 ? 0 : kErrClusterUnschedulable);
+  }
+  done.push_back(Key{kernel, device, cs, res});
+  return res;
+}
+
+// GEMM regime: each step a launch on the stream.
+struct HostExec {
+  int g, n;
+  cudaStream_t stream;
+
+  int ns_start(const float* a, float* norm, float* out0, float* out1, int num_iters,
+               int z_last) {
+    stt_nsk_norm_partials<<<dim3(kNormBlocks, g), kNormThreads, 0, stream>>>(a, norm, n);
+    stt_nsk_ns_start<<<dim3(kStartBlocks, g), kNormThreads, 0, stream>>>(
+        a, norm, out0, out1, n, num_iters, z_last);
+    return static_cast<int>(cudaGetLastError());
+  }
+  int lyap_start(const float* z, const float* gr, float* norm, float* a0, float* q0,
+                 int num_iters) {
+    stt_nsk_norm_partials<<<dim3(kNormBlocks, g), kNormThreads, 0, stream>>>(z, norm, n);
+    stt_nsk_lyap_start<<<dim3(kStartBlocks, g), kNormThreads, 0, stream>>>(
+        z, gr, norm, a0, q0, n, num_iters);
+    return static_cast<int>(cudaGetLastError());
+  }
+  int gemm(const Launch& l) {
+    const int tiles = (n + GemmCfg::kTile - 1) / GemmCfg::kTile;
+    stt_nsk_gemm<<<dim3(tiles, tiles, g * l.ntask), GemmCfg::kThreads, GemmCfg::kSmemBytes,
+                   stream>>>(l);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+// Cluster regime. The steps of a plan are recorded into a table in shared
+// memory, kPlanChunk at a time: thread 0 runs the plan with a RecordExec,
+// which keeps the start and the steps [first, first + kPlanChunk), and the
+// block then executes them. A launch takes one chunk; a plan of more than
+// kPlanChunk steps (more than 24 iterations) takes one launch per chunk.
+// Executing from the table keeps the plan's own state out of the tile's
+// registers.
+constexpr int kPlanChunk = 48;
+
+struct StepTable {
+  const float* in0;  // the start's operands (RecordExec)
+  const float* in1;
+  float* out0;
+  float* out1;
+  int num_iters, z_last;
+  int first, count, total;  // this launch's first step; steps kept; steps seen
+  Launch step[kPlanChunk];
+};
+
+struct RecordExec {
+  StepTable* tab;
+
+  __device__ int ns_start(const float* a, float*, float* out0, float* out1, int num_iters,
+                          int z_last) {
+    tab->in0 = a;
+    tab->out0 = out0;
+    tab->out1 = out1;
+    tab->num_iters = num_iters;
+    tab->z_last = z_last;
+    return 0;
+  }
+  __device__ int lyap_start(const float* z, const float* gr, float*, float* a0, float* q0,
+                            int num_iters) {
+    tab->in0 = z;
+    tab->in1 = gr;
+    tab->out0 = a0;
+    tab->out1 = q0;
+    tab->num_iters = num_iters;
+    return 0;
+  }
+  __device__ int gemm(const Launch& l) {
+    const int i = tab->total++ - tab->first;
+    if (i >= 0 && i < kPlanChunk) tab->step[tab->count++] = l;
+    return 0;
+  }
+};
+
+// The whole plan of matrix blockIdx.x / cs in one cluster of cs blocks:
+// block `rank` owns output tile (rank / tpr, rank % tpr) of every step,
+// and cluster.sync() stands between steps. Its arrive has release and its
+// wait acquire semantics at cluster scope, so a step's global writes are
+// visible to every block of the cluster after it (the operands are then
+// read through L2: cp.async.cg, __ldcg). record(tab) runs the plan with a
+// RecordExec on tab; this launch executes the steps [first, first +
+// kPlanChunk), and the start when first == 0.
+template <class Cf, bool kLyap, class Record>
+__device__ __forceinline__ void cluster_run(Record record, float* norm, int n, int first) {
+  __shared__ StepTable tab;
+  cg::cluster_group cl = cg::this_cluster();
+  const int cs = static_cast<int>(cl.num_blocks()), rank = static_cast<int>(cl.block_rank());
+  const int g = static_cast<int>(blockIdx.x) / cs;
+  const int tpr = (n + Cf::kTile - 1) / Cf::kTile;
+  const int row0 = (rank / tpr) * Cf::kTile, col0 = (rank % tpr) * Cf::kTile;
+  float* smem = dyn_smem();
+  if (threadIdx.x == 0) {
+    tab.first = first;
+    tab.count = 0;
+    tab.total = 0;
+    tab.out1 = nullptr;
+    record(tab);
+  }
+  __syncthreads();
+  if (first == 0) {  // the start: ||x||_F from one partial per block, in rank order
+    const size_t nn = static_cast<size_t>(n) * n, off = g * nn;
+    const bool vec = (nn & 3) == 0;
+    size_t begin, end;
+    part_range(nn, cs, rank, vec, begin, end);
+    const float t = block_sum_squares<Cf::kThreads>(tab.in0 + off, begin, end, vec);
+    if (threadIdx.x == 0) norm[g * kNormSlots + 1 + rank] = t;
+    cl.sync();
+    const float nrm = norm_from_partials(norm, g, cs);
+    if (rank == 0 && threadIdx.x == 0) norm[g * kNormSlots] = nrm;
+    const size_t e0 = rank * Cf::kThreads + threadIdx.x, stride = cs * Cf::kThreads;
+    if (kLyap) {
+      lyap_start_elems(tab.in0, tab.in1, nrm, tab.out0, tab.out1, off, n, tab.num_iters,
+                       e0, stride);
+    } else {
+      ns_start_elems(tab.in0, nrm, tab.out0, tab.out1, off, n, tab.num_iters, tab.z_last,
+                     e0, stride);
+    }
+    cl.sync();
+  }
+  for (int s = 0; s < tab.count; ++s) {
+    const Launch& L = tab.step[s];
+    for (int task = 0; task < L.ntask; ++task)
+      gemm_tile<Cf>(L, L.task[task], g, row0, col0, smem);
+    cl.sync();
+  }
+}
+
+// Cluster regime, B1 / B2.
+template <int kTile>
+__global__ void __launch_bounds__(ClusterCfg<kTile>::kThreads)
+stt_nsk_ns_cluster(const float* a, float* y, float* z, float* t, float* y2, float* z2,
+                   float* norm, int n, int num_iters, int emit_z, int first) {
+  cluster_run<ClusterCfg<kTile>, false>(
+      [=](StepTable& tab) {
+        RecordExec rec{&tab};
+        ns_plan(rec, a, y, z, t, y2, z2, norm, n, num_iters, emit_z != 0);
+      },
+      norm, n, first);
+}
+
+// Cluster regime, B3.
+template <int kTile>
+__global__ void __launch_bounds__(ClusterCfg<kTile>::kThreads)
+stt_nsk_lyap_cluster(const float* z, const float* gr, float* q, float* a, float* a2,
+                     float* q2, float* e, float* d, float* norm, int n, int num_iters,
+                     int first) {
+  cluster_run<ClusterCfg<kTile>, true>(
+      [=](StepTable& tab) {
+        RecordExec rec{&tab};
+        lyap_plan(rec, z, gr, q, a, a2, q2, e, d, norm, n, num_iters);
+      },
+      norm, n, first);
+}
+
+// Output tile edge of the cluster regime: (C / tile)^2 blocks, at most 16.
+inline int cluster_tile(int n) { return n <= 128 ? 32 : 64; }
+
+// Counts a plan's steps on the host.
+struct CountExec {
+  int steps = 0;
+  int ns_start(const float*, float*, float*, float*, int, int) { return 0; }
+  int lyap_start(const float*, const float*, float*, float*, float*, int) { return 0; }
+  int gemm(const Launch&) {
+    ++steps;
+    return 0;
+  }
+};
+
+// Launches one cluster of cs blocks per matrix, cs from the tile edge, for
+// each chunk of the plan's `steps` steps (at least one launch: the start).
+template <int kTile, class Kernel, class... Args>
+int launch_cluster(Kernel kernel, int g, int n, int steps, cudaStream_t stream,
+                   Args... args) {
+  const int tpr = (n + kTile - 1) / kTile, cs = tpr * tpr;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cs * g);
+  cfg.blockDim = dim3(ClusterCfg<kTile>::kThreads);
+  cfg.dynamicSmemBytes = ClusterCfg<kTile>::kSmemBytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const int res = prepare(reinterpret_cast<const void*>(kernel), cfg.dynamicSmemBytes, cs, &cfg);
+  if (res != 0) return res;
+  for (int first = 0; first == 0 || first < steps; first += kPlanChunk) {
+    cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args..., first);
+    if (err == cudaSuccess) err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }
 
 bool bad_args(int g, int n, int num_iters) {
   return g <= 0 || n <= 0 || num_iters < 0 || g > 65535 / 2;
 }
 
-// The NS chain of B1 (emit_z) and B2 (Y only).
-int ns_chain(const float* a, float* y, float* z, float* t, float* y2,
-             float* z2, float* norm, int g, int n, int num_iters, bool emit_z,
-             cudaStream_t stream) {
+int ns_chain(const float* a, float* y, float* z, float* t, float* y2, float* z2,
+             float* norm, int g, int n, int num_iters, bool emit_z, cudaStream_t stream) {
   if (bad_args(g, n, num_iters)) return static_cast<int>(cudaErrorInvalidValue);
-  float* ys[2] = {y, y2};
-  float* zs[2] = {z, z2};
-  // Start in the buffer pair that makes the last iteration land in (y, z).
-  int cur = num_iters % 2;
-  ns_init_kernel<<<g, kInitThreads, 0, stream>>>(a, ys[cur], zs[cur], norm, n,
-                                                 num_iters == 0);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  for (int it = 0; it < num_iters; ++it) {
-    const int nxt = cur ^ 1;
-    const bool last = it == num_iters - 1;
-    Launch lt{};
-    lt.task[0] = product(zs[cur], ys[cur], t, 0.5f);
-    lt.task[0].diag = 3.f;  // T = (3I - Z Y) * 0.5
-    lt.ntask = 1;
-    lt.norm = norm;
-    lt.n = n;
-    if ((err = run<1>(lt, g, stream)) != cudaSuccess) return static_cast<int>(err);
-
-    Launch lyz{};
-    lyz.task[0] = product(ys[cur], t, ys[nxt], 1.f, last ? 1 : 0);  // Y T
-    lyz.task[1] = product(t, zs[cur], zs[nxt], 1.f, last ? 2 : 0);  // T Z
-    lyz.ntask = (last && !emit_z) ? 1 : 2;
-    lyz.norm = norm;
-    lyz.n = n;
-    if ((err = run<1>(lyz, g, stream)) != cudaSuccess) return static_cast<int>(err);
-    cur = nxt;
+  if (n > kClusterMaxC) {
+    HostExec ex{g, n, stream};
+    return ns_plan(ex, a, y, z, t, y2, z2, norm, n, num_iters, emit_z);
   }
-  return 0;
+  const int ez = static_cast<int>(emit_z);
+  CountExec count;
+  ns_plan(count, a, y, z, t, y2, z2, norm, n, num_iters, emit_z);
+  if (cluster_tile(n) == 32) {
+    return launch_cluster<32>(stt_nsk_ns_cluster<32>, g, n, count.steps, stream, a, y, z, t,
+                              y2, z2, norm, n, num_iters, ez);
+  }
+  return launch_cluster<64>(stt_nsk_ns_cluster<64>, g, n, count.steps, stream, a, y, z, t, y2,
+                            z2, norm, n, num_iters, ez);
+}
+
+int lyap_chain(const float* z, const float* gr, float* q, float* a, float* a2, float* q2,
+               float* e, float* d, float* norm, int g, int n, int num_iters,
+               cudaStream_t stream) {
+  if (bad_args(g, n, num_iters)) return static_cast<int>(cudaErrorInvalidValue);
+  if (n > kClusterMaxC) {
+    HostExec ex{g, n, stream};
+    return lyap_plan(ex, z, gr, q, a, a2, q2, e, d, norm, n, num_iters);
+  }
+  CountExec count;
+  lyap_plan(count, z, gr, q, a, a2, q2, e, d, norm, n, num_iters);
+  if (cluster_tile(n) == 32) {
+    return launch_cluster<32>(stt_nsk_lyap_cluster<32>, g, n, count.steps, stream, z, gr, q,
+                              a, a2, q2, e, d, norm, n, num_iters);
+  }
+  return launch_cluster<64>(stt_nsk_lyap_cluster<64>, g, n, count.steps, stream, z, gr, q, a,
+                            a2, q2, e, d, norm, n, num_iters);
 }
 
 }  // namespace
+}  // namespace stt
 
-// B1. Runs the whole chain on `stream`. a: (g, n, n) input; y, z: (g, n, n)
-// outputs; t, y2, z2: (g, n, n) scratch; norm: (g,) scratch. All device
-// pointers, float32, contiguous; allocated by the caller. Returns the
-// cudaError_t of the first failed launch, or 0.
-extern "C" int stt_ns_sqrtm_yz_f32(const float* a, float* y, float* z,
-                                   float* t, float* y2, float* z2,
-                                   float* norm, int g, int n, int num_iters,
-                                   void* stream_ptr) {
-  return ns_chain(a, y, z, t, y2, z2, norm, g, n, num_iters, true,
-                  static_cast<cudaStream_t>(stream_ptr));
+// Every entry point runs its whole chain on `stream` and returns 0, the
+// cudaError_t of the first failed launch, or stt::kErrClusterUnschedulable.
+// All pointers are device pointers to contiguous float32, allocated by the
+// caller: (g, n, n) matrices, and norm of g * stt_ns_norm_slots() floats.
+
+// Floats of the `norm` scratch per matrix.
+extern "C" int stt_ns_norm_slots() { return stt::kNormSlots; }
+
+// B1. a: input; y, z: outputs; t, y2, z2: scratch.
+extern "C" int stt_ns_sqrtm_yz_f32(const float* a, float* y, float* z, float* t,
+                                   float* y2, float* z2, float* norm, int g, int n,
+                                   int num_iters, void* stream_ptr) {
+  return stt::ns_chain(a, y, z, t, y2, z2, norm, g, n, num_iters, true,
+                       static_cast<cudaStream_t>(stream_ptr));
 }
 
-// B2. As B1 with y the only output; t, y2, z, z2: (g, n, n) scratch.
-extern "C" int stt_ns_sqrtm_f32(const float* a, float* y, float* t, float* y2,
-                                float* z, float* z2, float* norm, int g, int n,
-                                int num_iters, void* stream_ptr) {
-  return ns_chain(a, y, z, t, y2, z2, norm, g, n, num_iters, false,
-                  static_cast<cudaStream_t>(stream_ptr));
+// B2. As B1 with y the only output; t, y2, z, z2: scratch.
+extern "C" int stt_ns_sqrtm_f32(const float* a, float* y, float* t, float* y2, float* z,
+                                float* z2, float* norm, int g, int n, int num_iters,
+                                void* stream_ptr) {
+  return stt::ns_chain(a, y, z, t, y2, z2, norm, g, n, num_iters, false,
+                       static_cast<cudaStream_t>(stream_ptr));
 }
 
-// B3. z, gr: (g, n, n) inputs (the forward's square root and the incoming
-// gradient); q: (g, n, n) output; a, a2, q2, e, d: (g, n, n) scratch; norm:
-// (g,) scratch. Same conventions as B1.
-extern "C" int stt_lyap_bwd_f32(const float* z, const float* gr, float* q,
-                                float* a, float* a2, float* q2, float* e,
-                                float* d, float* norm, int g, int n,
-                                int num_iters, void* stream_ptr) {
-  if (bad_args(g, n, num_iters)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  float* as[2] = {a, a2};
-  float* qs[2] = {q, q2};
-  int cur = num_iters % 2;  // the last iteration lands in q
-  lyap_init_kernel<<<g, kInitThreads, 0, stream>>>(z, gr, as[cur], qs[cur],
-                                                   norm, n, num_iters == 0);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  for (int it = 0; it < num_iters; ++it) {
-    const int nxt = cur ^ 1;
-    const bool last = it == num_iters - 1;
-    Launch l1{};
-    l1.task[0] = product(as[cur], as[cur], e);  // E = 3I - a a
-    l1.task[0].diag = 3.f;
-    l1.task[1] = Task{{Term{as[cur], qs[cur], 1}, Term{qs[cur], as[cur], 0}},
-                      2, d, 0.f, 1.f, 0};  // D = a^T q - q a
-    l1.ntask = 2;
-    l1.norm = norm;
-    l1.n = n;
-    if ((err = run<2>(l1, g, stream)) != cudaSuccess) return static_cast<int>(err);
-
-    Launch l2{};
-    l2.task[0] = Task{{Term{qs[cur], e, 0}, Term{as[cur], d, 1}}, 2, qs[nxt],
-                      0.f, last ? 0.25f : 0.5f, 0};  // q' = (q E - a^T D) / 2
-    l2.task[1] = product(as[cur], e, as[nxt], 0.5f);  // a' = a E / 2
-    l2.ntask = last ? 1 : 2;
-    l2.norm = norm;
-    l2.n = n;
-    if ((err = run<2>(l2, g, stream)) != cudaSuccess) return static_cast<int>(err);
-    cur = nxt;
-  }
-  return 0;
+// B3. z, gr: inputs (the forward's square root and the incoming gradient);
+// q: output; a, a2, q2, e, d: scratch.
+extern "C" int stt_lyap_bwd_f32(const float* z, const float* gr, float* q, float* a,
+                                float* a2, float* q2, float* e, float* d, float* norm,
+                                int g, int n, int num_iters, void* stream_ptr) {
+  return stt::lyap_chain(z, gr, q, a, a2, q2, e, d, norm, g, n, num_iters,
+                         static_cast<cudaStream_t>(stream_ptr));
 }

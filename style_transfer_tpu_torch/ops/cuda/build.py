@@ -1,7 +1,8 @@
 """Build the package's CUDA sources into a shared library at first use.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one library with a plain C
-interface for Hopper (``sm_90a``), loaded with ctypes. The library goes to
+``nvcc`` compiles every ``csrc/*.cu`` (with the ``csrc/*.cuh`` headers
+they include) into one library with a plain C interface for Hopper
+(``sm_90a``), loaded with ctypes. The library goes to
 ``style_transfer_tpu_torch/_build/`` under a name that carries a hash of the
 sources and flags, and is written to a temporary file first and renamed into
 place, so a concurrent process never loads a half-written library. Nothing
@@ -35,6 +36,7 @@ NVCC_FLAGS = (
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 # C symbol -> argtypes; every pointer and the stream are c_void_p.
 _SIGNATURES = {
+    "stt_ns_norm_slots": [],
     "stt_ns_sqrtm_yz_f32": [_VP] * 7 + [_I, _I, _I, _VP],
     "stt_ns_sqrtm_f32": [_VP] * 7 + [_I, _I, _I, _VP],
     "stt_lyap_bwd_f32": [_VP] * 9 + [_I, _I, _I, _VP],
@@ -46,9 +48,9 @@ def _sources():
 
 
 def library_path(build_dir=None) -> Path:
-    """Where the library for the current sources and flags lives."""
+    """Where the library for the current sources, headers and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC_DIR.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return Path(build_dir or BUILD_DIR) / f"libstt_kernels_{h.hexdigest()[:16]}.so"

@@ -1,7 +1,9 @@
 """Newton-Schulz square roots: CUDA kernels, plain versions, autograd.
 
-The kernels (``csrc/ns_sqrtm.cu``) replace the three TPU kernels of
-``style_transfer_tpu/ops/pallas/ns_sqrtm.py``, all in FP32 FMA:
+The kernels (``csrc/ns_sqrtm.cu`` with ``csrc/ns_common.cuh``) replace
+the three TPU kernels of ``style_transfer_tpu/ops/pallas/ns_sqrtm.py``, every
+product in 3xTF32 on the tensor cores (FP32 accuracy; emulated on the CPU
+by :func:`matmul_tf32x3` for the tests):
 
 * :func:`ns_sqrtm_yz` (``_ns_fwd_yz_kernel``): for (G, C, C) float32
   matrices, (Y, Z) ~ (A^{1/2}, A^{-1/2}) after ``num_iters`` coupled NS
@@ -18,6 +20,9 @@ kernel; :class:`SqrtmNSLyap` gives the full square root with the Lyapunov
 kernel as its backward, as the JAX package computes them.
 """
 
+import contextlib
+import functools
+
 import torch
 
 from ..sqrtm import _batch_trace, _lyap_backward, _sqrtm_ns_yz, sqrtm_ns
@@ -26,7 +31,8 @@ from . import build
 __all__ = [
     "ns_sqrtm_yz", "ns_sqrtm_yz_plain", "TraceSqrtmNS", "trace_sqrtm_ns",
     "ns_sqrtm", "ns_sqrtm_plain", "lyap_bwd", "lyap_bwd_plain",
-    "SqrtmNSLyap", "sqrtm_ns_lyap",
+    "SqrtmNSLyap", "sqrtm_ns_lyap", "tf32_round", "matmul_tf32x3",
+    "ns_first_iteration", "ns_sqrtm_yz_tf32x3", "lyap_bwd_tf32x3",
 ]
 
 
@@ -43,6 +49,66 @@ def ns_sqrtm_plain(a, num_iters: int = 12):
 def lyap_bwd_plain(z, g, num_iters: int = 12):
     """The plain PyTorch version of :func:`lyap_bwd`."""
     return _lyap_backward(z, g, num_iters)
+
+
+def tf32_round(x):
+    """``cvt.rna.tf32.f32`` on float32 values: round to the 10-bit TF32
+    mantissa, ties away from zero (add half a TF32 unit to the magnitude
+    bits, clear the 13 dropped bits). Finite inputs only."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def matmul_tf32x3(a, b):
+    """The kernels' 3xTF32 product, emulated: each operand split into a TF32
+    head and the TF32-rounded remainder, a·b ≈ hi·hi + (hi·lo + lo·hi) with
+    FP32 sums (each product of two TF32 values is exact in FP32). For the
+    tests only; the kernels' own summation order within a k-step differs."""
+    a_hi, b_hi = tf32_round(a), tf32_round(b)
+    a_lo, b_lo = tf32_round(a - a_hi), tf32_round(b - b_hi)
+    return a_hi @ b_hi + (a_hi @ b_lo + a_lo @ b_hi)
+
+
+def ns_first_iteration(y0):
+    """The kernels' first NS iteration from Z_0 = I without its two products
+    by the identity: T_0 = (3I - Y_0) / 2 elementwise, Z_1 = T_0. Returns
+    (T_0, Z_1); Y_1 = Y_0 T_0 is the one product left."""
+    eye = torch.eye(y0.shape[-1], dtype=y0.dtype, device=y0.device)
+    t0 = (3.0 * eye - y0) * 0.5
+    return t0, t0
+
+
+def ns_sqrtm_yz_tf32x3(a, num_iters: int = 12):
+    """The chain of :func:`ns_sqrtm_yz` as the kernel runs it: the shortened
+    first iteration, then every product in emulated 3xTF32."""
+    norm = torch.sqrt(torch.sum(a * a, dim=(-2, -1), keepdim=True))
+    y = a / norm
+    z = torch.eye(a.shape[-1], dtype=a.dtype).expand_as(a)
+    eye = torch.eye(a.shape[-1], dtype=a.dtype)
+    for it in range(num_iters):
+        if it == 0:
+            t, z = ns_first_iteration(y)
+            y = matmul_tf32x3(y, t)
+        else:
+            t = (3.0 * eye - matmul_tf32x3(z, y)) * 0.5
+            y, z = matmul_tf32x3(y, t), matmul_tf32x3(t, z)
+    sn = torch.sqrt(norm)
+    return y * sn, z / sn
+
+
+def lyap_bwd_tf32x3(z, g, num_iters: int = 12):
+    """The chain of :func:`lyap_bwd` with every product in emulated 3xTF32,
+    the two-term differences subtracted after both products, as the kernel
+    does."""
+    eye3 = 3.0 * torch.eye(z.shape[-1], dtype=z.dtype)
+    norm = torch.sqrt(torch.sum(z * z, dim=(-2, -1), keepdim=True))
+    a, q = z / norm, g / norm
+    for _ in range(num_iters):
+        at = a.transpose(-2, -1)
+        e = eye3 - matmul_tf32x3(a, a)
+        d = matmul_tf32x3(at, q) - matmul_tf32x3(q, a)
+        q = (matmul_tf32x3(q, e) - matmul_tf32x3(at, d)) * 0.5
+        a = matmul_tf32x3(a, e) * 0.5
+    return q * 0.5
 
 
 def _check_input(name, a, num_iters):
@@ -62,32 +128,56 @@ def _check_cuda_input(name, a):
         raise ValueError(f"{name}: unsupported device {a.device}")
     if not a.is_contiguous():
         raise ValueError(f"{name}: input must be contiguous")
-    cap = torch.cuda.get_device_capability(a.device)
+    cap = _capability(a.device.index)
     if cap != (9, 0):
         raise RuntimeError(
             f"{name}: the kernel is built for sm_90a (Hopper); "
             f"{torch.cuda.get_device_name(a.device)} is sm_{cap[0]}{cap[1]}")
 
 
+@functools.lru_cache(maxsize=None)
+def _capability(index):
+    return torch.cuda.get_device_capability(index)
+
+
+# stt::kErrClusterUnschedulable (csrc/ns_common.cuh).
+_ERR_CLUSTER_UNSCHEDULABLE = 10000
+
+
 def _launch(name, symbol, inputs, n_out, n_scratch, num_iters):
     """Calls ``symbol(*inputs, *outputs, *scratch, norm, g, n, num_iters,
-    stream)`` on the inputs' device and current stream, with every output
-    and scratch buffer a fresh (G, C, C) ``torch.empty``. Returns the
-    outputs in the inputs' shape."""
+    stream)`` on the inputs' device and current stream, with every output a
+    fresh (G, C, C) ``torch.empty`` and the scratch matrices and ``norm``
+    ((G, stt_ns_norm_slots()) floats) in one more. Returns the outputs in
+    the inputs' shape."""
     x = inputs[0]
     batched = [t if t.ndim == 3 else t.unsqueeze(0) for t in inputs]
     g, n, _ = batched[0].shape
     outs = [torch.empty_like(batched[0]) for _ in range(n_out)]
-    scratch = torch.empty((n_scratch, g, n, n), dtype=torch.float32, device=x.device)
-    norm = torch.empty((g,), dtype=torch.float32, device=x.device)
-    fn = getattr(build.load(), symbol)
-    with torch.cuda.device(x.device):  # launches go to the current device
+    lib = build.load()
+    nn = g * n * n
+    scratch = torch.empty((n_scratch * nn + g * _norm_slots(lib),), dtype=torch.float32,
+                          device=x.device)
+    base = scratch.data_ptr()
+    fn = getattr(lib, symbol)
+    # Launches go to the inputs' device: make it current for the call.
+    switch = x.device.index != torch.cuda.current_device()
+    with torch.cuda.device(x.device) if switch else contextlib.nullcontext():
         err = fn(*(t.data_ptr() for t in batched), *(t.data_ptr() for t in outs),
-                 *(t.data_ptr() for t in scratch), norm.data_ptr(), g, n,
+                 *(base + 4 * i * nn for i in range(n_scratch + 1)), g, n,
                  num_iters, torch.cuda.current_stream(x.device).cuda_stream)
+    if err == _ERR_CLUSTER_UNSCHEDULABLE:
+        raise RuntimeError(
+            f"{name}: the thread-block cluster for C={n} cannot be scheduled "
+            f"on {torch.cuda.get_device_name(x.device)}")
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed, cudaError_t {err}")
     return [t.view(x.shape) for t in outs]
+
+
+@functools.lru_cache(maxsize=None)
+def _norm_slots(lib):
+    return lib.stt_ns_norm_slots()
 
 
 def ns_sqrtm_yz(a, num_iters: int = 12):

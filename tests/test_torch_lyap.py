@@ -240,7 +240,7 @@ def test_cli_lyap_writes_output_and_trace(tmp_path, content_pil, style_pil):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("g,n", [(1, 64), (1, 100), (2, 512)])
+@pytest.mark.parametrize("g,n", [(1, 64), (1, 100), (1, 256), (1, 300), (2, 512)])
 def test_kernels_match_plain_on_card(g, n):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc (runs on the card)")
@@ -257,5 +257,35 @@ def test_kernels_match_plain_on_card(g, n):
     assert (K.ns_sqrtm.launches, K.lyap_bwd.launches) == (before[0] + 1, before[1] + 1)
     # The same tolerances as chip_smoke.py: Y to 1e-4 of max|Y|, Q to 1e-3
     # of max|Q|.
+    assert ((y - py).abs().max() / py.abs().max()).item() < 1e-4
+    assert ((q - pq).abs().max() / pq.abs().max()).item() < 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [64, 200])
+def test_kernels_past_one_launch_on_card(n):
+    """30 iterations at C <= 256: the cluster regime's plan of 59-60 steps
+    takes two launches of 48 steps at most (csrc/ns_sqrtm.cu); the wrapper
+    still counts one call. Z is not compared here: past convergence the
+    coupled iteration's Z drifts from the FP32 chain's as iterations go
+    on, whatever the launches (Y, tr(Y) and Q do not)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (runs on the card)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    iters = 30
+    a = torch.from_numpy(_mats(1, n, "lowrank", seed=11)).cuda()
+    gr = torch.from_numpy(
+        np.random.RandomState(12).randn(1, n, n).astype(np.float32)).cuda()
+    before = (K.ns_sqrtm_yz.launches, K.ns_sqrtm.launches, K.lyap_bwd.launches)
+    yz, _ = K.ns_sqrtm_yz(a, iters)
+    y = K.ns_sqrtm(a, iters)
+    q = K.lyap_bwd(y, gr, iters)
+    py = K.ns_sqrtm_plain(a, iters)
+    pq = K.lyap_bwd_plain(y, gr, iters)
+    torch.cuda.synchronize()
+    after = (K.ns_sqrtm_yz.launches, K.ns_sqrtm.launches, K.lyap_bwd.launches)
+    assert after == tuple(b + 1 for b in before)
+    torch.testing.assert_close(yz.diagonal(dim1=-2, dim2=-1).sum(-1),
+                               py.diagonal(dim1=-2, dim2=-1).sum(-1), rtol=1e-4, atol=0)
     assert ((y - py).abs().max() / py.abs().max()).item() < 1e-4
     assert ((q - pq).abs().max() / pq.abs().max()).item() < 1e-3

@@ -127,8 +127,21 @@ def test_library_name_tracks_sources(tmp_path):
     assert p == build.library_path(tmp_path)
 
 
+def test_library_name_tracks_headers(tmp_path, monkeypatch):
+    """A change to a csrc/ header alone gives the library a new name, so a
+    stale build is never loaded."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text('#include "k.cuh"\n')
+    (csrc / "k.cuh").write_text("constexpr int kA = 1;\n")
+    monkeypatch.setattr(build, "CSRC_DIR", csrc)
+    before = build.library_path(tmp_path)
+    (csrc / "k.cuh").write_text("constexpr int kA = 2;\n")
+    assert build.library_path(tmp_path) != before
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("g,n", [(1, 64), (1, 100), (2, 512)])
+@pytest.mark.parametrize("g,n", [(1, 64), (1, 100), (1, 256), (1, 300), (2, 512)])
 def test_kernel_matches_plain_on_card(g, n):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc (runs on the card)")
