@@ -34,20 +34,45 @@ each of which exits non-zero on failure:
    the checks of phase 4 and exactly 400 launches each of B2 and B3 and none
    of B1;
 6. steady state of the step at 512x384 for (adam, trace), (adam, lyap) and
-   (lbfgs, lyap): ms/iter, peak memory, and from ``torch.profiler`` the
-   device's busy share and the NS kernels' time per iteration.
+   (lbfgs, lyap) with the FP32 trunk, and (adam, trace), (adam, lyap) with
+   the bf16 trunk: ms/iter, peak memory, and from ``torch.profiler`` the
+   device's busy share, the NS kernels' time per iteration and the
+   costliest kernels;
+7. checkpoint/resume through the CLI: phases 4 and 5's pyramids once more
+   (the spread of two runs under cuDNN's default algorithm choice, printed);
+   then, under cuDNN's deterministic algorithms, each pyramid
+   uninterrupted, with ``--checkpoint --checkpoint-every 10`` interrupted
+   by a KeyboardInterrupt from the callback at iteration 10 of the third
+   scale, and ``--resume``d to the end: the resumed losses equal the
+   uninterrupted run's from the resume point on to rtol 1e-5 (bit-identity
+   printed), the output its image within 1/255, and the kernels launch for
+   the 50 resumed iterations only; the checkpoint's size and the writer
+   thread's write time, its device fetch included; then, with cuDNN's
+   default again, one 1448x1086 scale, plain, with ``--checkpoint-every
+   10`` and with ``--save-every 10``, ms/iter of each;
+8. the web preview: phase 4's pyramid with ``--web`` on 127.0.0.1 and a
+   standard-library client that reads ``/``, the WebSocket events (at least
+   one STIterate of the running canvas, then WIDone) and ``/image`` (a JPEG
+   of the canvas with the ICC profile);
+9. ``--precision bf16``: the bf16 trunk's taps within 5e-2 of the FP32 ones
+   at 512x384, and the CLI pyramid in bf16 with phase 4's checks (400 B1
+   launches), its output's PSNR against phase 4's FP32 output.
 
-Everything runs in FP32 (TF32 off for matmuls and cuDNN). The weights are
-the deterministic He-normal ``random_params(0)``. The last stdout line is
-``{"ok": true, "device": {...}}``; the line before it lists the kernels, the
-one before that the card's name and power limit.
+Everything but phase 9 and the bf16 rows of phase 6 runs in FP32 (TF32 off
+for matmuls and cuDNN). The weights are the deterministic He-normal
+``random_params(0)``. The last stdout line is ``{"ok": true, "device":
+{...}}``; the line before it lists the kernels, the one before that the
+card's name and power limit.
 """
 
+import contextlib
 import json
+import socket
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import traceback
 from pathlib import Path
@@ -61,6 +86,11 @@ KERNEL_TOL_Z = 1e-3
 KERNEL_TOL_Y = 1e-4
 KERNEL_TOL_Q = 1e-3
 CPU_RTOL = 1e-3
+RESUME_RTOL = 1e-5
+BF16_TAP_TOL = 5e-2  # of max, the JAX package's bound (tests/test_vgg.py)
+PYRAMID = [(128, 96), (181, 136), (256, 192), (362, 272), (512, 384)]
+BIG_SCALE, BIG_CANVAS = 1448, (1448, 1086)  # a print-size scale of the content
+DEVICE = "cuda:0"
 # Published H100 SXM peaks: dense TF32 on the tensor cores, FP32 outside
 # them, and HBM3.
 PEAK_TF32 = 495e12
@@ -379,7 +409,8 @@ def _steady_phase(content_path, style_path):
     """Steady state of the step at 512x384 for each flavour of the path:
     ms/iter over 20 iterations ended by one sync (after 3 warm-up), then
     torch.profiler over 5 iterations for the device's busy share (summed
-    kernel time over the wall) and the NS kernels' share of it."""
+    kernel time over the wall), the NS kernels' share of it and the five
+    costliest kernels."""
     import torch
     from PIL import Image
 
@@ -389,33 +420,42 @@ def _steady_phase(content_path, style_path):
     from style_transfer_tpu_torch.models.weights import random_params
     from style_transfer_tpu_torch.utils.ema import ema_init
 
-    st = StyleTransfer(device="cuda:0", weights=random_params(0))
     with Image.open(content_path) as c, Image.open(style_path) as s:
         content_img, style_img = c.convert("RGB"), s.convert("RGB")
-    image = _pil_to_nchw(content_img, (512, 384), st.device)
+    image = _pil_to_nchw(content_img, (512, 384), DEVICE)
     cuda = torch.autograd.DeviceType.CUDA
-    for optimizer, w2_grad in (("adam", "trace"), ("adam", "lyap"), ("lbfgs", "lyap")):
-        cfg = S.StepConfig(w2_grad=w2_grad)
+    st = None
+    for optimizer, w2_grad, precision in (
+            ("adam", "trace", "f32"), ("adam", "lyap", "f32"), ("lbfgs", "lyap", "f32"),
+            ("adam", "trace", "bf16"), ("adam", "lyap", "bf16")):
+        if st is None or st.compute_dtype != (torch.bfloat16 if precision == "bf16"
+                                              else None):
+            # One engine at a time, so each row's peak memory is its own.
+            st = None
+            st = StyleTransfer(device=DEVICE, weights=random_params(0),
+                               compute_dtype=precision)
+        cfg = S.StepConfig(w2_grad=w2_grad, compute_dtype=st.compute_dtype)
         consts = st._capture_targets(image, [style_img], [1.0], 512, 1.0, None, cfg)
         if optimizer == "adam":
             run, opt = S.make_adam_runner(cfg), S.adam_init(image)
         else:
             run, opt = S.make_lbfgs_runner(cfg), S.lbfgs_init(image)
         state = S.LoopState(image=image, opt=opt, ema=ema_init(image, cfg.avg_decay))
-        state, _ = run(st.params, consts, state, 3)
+        state, _ = run(st._step_params(), consts, state, 3)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        state, losses = run(st.params, consts, state, 20)
+        state, losses = run(st._step_params(), consts, state, 20)
         torch.cuda.synchronize()
         ms_iter = (time.perf_counter() - t0) / 20 * 1e3
         peak = torch.cuda.max_memory_allocated() / 2**20
         if not torch.isfinite(losses).all():
-            raise AssertionError(f"steady state ({optimizer}, {w2_grad}): non-finite loss")
+            raise AssertionError(
+                f"steady state ({optimizer}, {w2_grad}, {precision}): non-finite loss")
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                                 torch.profiler.ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            state, _ = run(st.params, consts, state, 5)
+            state, _ = run(st._step_params(), consts, state, 5)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
         kernels = [e for e in prof.events() if e.device_type == cuda]
@@ -425,8 +465,13 @@ def _steady_phase(content_path, style_path):
                     f"{busy_us / 5e3:.2f} ms/iter of which NS kernels "
                     f"{ns_us / 5e3:.2f} ms/iter" if kernels else
                     "not measured (the profiler saw no device kernels)")
-        print(f"steady state ({optimizer}, {w2_grad}) at 512x384: {ms_iter:.2f} ms/iter, "
-              f"peak memory {peak:.1f} MiB; profiled: {profiled}")
+        print(f"steady state ({optimizer}, {w2_grad}, {precision}) at 512x384: "
+              f"{ms_iter:.2f} ms/iter, peak memory {peak:.1f} MiB; profiled: {profiled}")
+        by_name = {}
+        for e in kernels:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+        for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:5]:
+            print(f"    {us / 5e3:.3f} ms/iter  {name[:110]}")
 
 
 def _launch_counts():
@@ -442,12 +487,10 @@ def _reset_launch_counts():
         getattr(K, name).launches = 0
 
 
-def _cli_phase(tmp, content_path, style_path, label, flags, expect):
-    """One CLI pyramid run with the counts set to 0 just before it; checks
-    the run and that the launch counts equal ``expect``."""
-    import numpy as np
-    from PIL import Image
-
+def _run_cli(tmp, content_path, style_path, label, flags):
+    """One CLI run (the pyramid 128 -> 512, 20 iterations a scale, unless
+    ``flags`` override it) with the counts set to 0 just before it; prints
+    ms/iter per scale and returns (iterates, output path, launches)."""
     from style_transfer_tpu_torch import cli
     from style_transfer_tpu_torch.models.weights import random_params, save_params
 
@@ -455,7 +498,7 @@ def _cli_phase(tmp, content_path, style_path, label, flags, expect):
     if not weights.is_file():
         save_params(random_params(0), weights)
     out, trace = tmp / f"out_{label}.png", tmp / f"trace_{label}.json"
-    argv = [str(content_path), str(style_path), "--devices", "cuda:0",
+    argv = [str(content_path), str(style_path), "--devices", DEVICE,
             "--end-scale", "512", "--min-scale", "128", "-i", "20", "-ii", "20",
             "-o", str(out), "--trace", str(trace), "--vgg-weights", str(weights),
             *flags]
@@ -466,18 +509,33 @@ def _cli_phase(tmp, content_path, style_path, label, flags, expect):
     launches = _launch_counts()
 
     its = json.loads(trace.read_text())["iterates"]
-    by_scale = {}
-    for it in its:
-        by_scale.setdefault((it["w"], it["h"]), []).append(it)
-    sizes = list(by_scale)
-    print(f"CLI pyramid [{label}: {' '.join(flags) or 'defaults'}]: {len(its)} "
-          f"iterations over scales {sizes} in {wall:.2f} s")
-    for (w, h), s in by_scale.items():
-        ms_iter = (s[-1]["time"] - s[0]["time"]) / (len(s) - 1) * 1e3
+    print(f"CLI run [{label}: {' '.join(flags) or 'defaults'}]: {len(its)} "
+          f"iterations over scales {list(_by_scale(its))} in {wall:.2f} s")
+    for (w, h), s in _by_scale(its).items():
+        ms_iter = (s[-1]["time"] - s[0]["time"]) / max(len(s) - 1, 1) * 1e3
         peak = max(i["gpu_ram"] for i in s) / 2**20
         print(f"  {w}x{h}: {ms_iter:.2f} ms/iter, peak memory {peak:.1f} MiB, "
               f"loss {s[0]['loss']:.6g} -> {s[-1]['loss']:.6g}")
-    if sizes != [(128, 96), (181, 136), (256, 192), (362, 272), (512, 384)]:
+    return its, out, launches
+
+
+def _by_scale(its):
+    by_scale = {}
+    for it in its:
+        by_scale.setdefault((it["w"], it["h"]), []).append(it)
+    return by_scale
+
+
+def _cli_phase(tmp, content_path, style_path, label, flags, expect):
+    """One CLI pyramid run; checks the run and that the launch counts equal
+    ``expect``."""
+    import numpy as np
+    from PIL import Image
+
+    its, out, launches = _run_cli(tmp, content_path, style_path, label, flags)
+    by_scale = _by_scale(its)
+    sizes = list(by_scale)
+    if sizes != PYRAMID:
         raise AssertionError(f"unexpected pyramid {sizes}")
     if not all(len(s) == 20 for s in by_scale.values()):
         raise AssertionError("each scale should run 20 iterations")
@@ -488,8 +546,8 @@ def _cli_phase(tmp, content_path, style_path, label, flags, expect):
     if not first[-1]["loss"] < first[0]["loss"]:
         raise AssertionError("the first scale's loss did not decrease")
     with Image.open(out) as img:
-        if img.size != (512, 384):
-            raise AssertionError(f"output is {img.size}, expected (512, 384)")
+        if img.size != PYRAMID[-1]:
+            raise AssertionError(f"output is {img.size}, expected {PYRAMID[-1]}")
         arr = np.asarray(img.convert("RGB"))
         if arr.std() == 0:
             raise AssertionError("output image is constant")
@@ -498,6 +556,265 @@ def _cli_phase(tmp, content_path, style_path, label, flags, expect):
     if launches != expect:
         raise AssertionError(f"launches {launches}, expected {expect}")
     return launches
+
+
+def _read_png(path):
+    import numpy as np
+    from PIL import Image
+
+    with Image.open(path) as img:
+        return np.asarray(img.convert("RGB")).astype(np.int16)
+
+
+@contextlib.contextmanager
+def _timed_checkpoint_writes():
+    """Times each checkpoint write on the writer thread, its device fetch
+    included; yields the list the writes are appended to, as (w, h,
+    seconds, bytes)."""
+    from style_transfer_tpu_torch.utils import checkpoint as ckmod
+
+    writes, fetched = [], [0.0]
+    fetch, save = ckmod._fetch_cuda, ckmod.save_checkpoint
+
+    def timed_fetch(state, ready):
+        t0 = time.perf_counter()
+        out = fetch(state, ready)
+        fetched[0] = time.perf_counter() - t0
+        return out
+
+    def timed_save(path, **kw):
+        t0 = time.perf_counter()
+        save(path, **kw)
+        writes.append((kw["meta"]["w"], kw["meta"]["h"],
+                       fetched[0] + time.perf_counter() - t0, Path(path).stat().st_size))
+        fetched[0] = 0.0
+
+    ckmod._fetch_cuda, ckmod.save_checkpoint = timed_fetch, timed_save
+    try:
+        yield writes
+    finally:
+        ckmod._fetch_cuda, ckmod.save_checkpoint = fetch, save
+
+
+def _rel_diff(its, ref_its):
+    """(bit-identical, max relative difference) of two runs' losses."""
+    import numpy as np
+
+    got = np.array([it["loss"] for it in its])
+    ref = np.array([it["loss"] for it in ref_its])
+    return bool((got == ref).all()), float((np.abs(got - ref) / np.abs(ref)).max())
+
+
+def _resume_leg(tmp, content_path, style_path, label, flags, expect, writes):
+    """An uninterrupted pyramid; the same with checkpoints every 10
+    iterations, interrupted by a KeyboardInterrupt from the callback at
+    iteration 10 of the third scale (which the CLI catches as it catches
+    Ctrl-C); then ``--resume`` to the end with the counts set to 0 just
+    before it. The caller runs this under cuDNN's deterministic algorithms."""
+    from style_transfer_tpu_torch import cli
+
+    ref_its, ref_out, _ = _run_cli(tmp, content_path, style_path,
+                                   f"{label}-deterministic", flags)
+    ck = tmp / f"ck_{label}.npz"
+    run = flags + ["--checkpoint", str(ck), "--checkpoint-every", "10",
+                   "--callback-chunk", "10"]
+    call = cli.Callback.__call__
+
+    def interrupting(self, it):
+        if (it.w, it.h) == PYRAMID[2] and it.i == 10:
+            raise KeyboardInterrupt
+        call(self, it)
+
+    cli.Callback.__call__ = interrupting
+    try:
+        _run_cli(tmp, content_path, style_path, f"{label}-interrupted", run)
+    finally:
+        cli.Callback.__call__ = call
+    del writes[:]
+    its, out, launches = _run_cli(tmp, content_path, style_path, f"{label}-resumed",
+                                  run + ["--resume"])
+    resumed = [(it["w"], it["h"], it["i"]) for it in its]
+    expected = [(it["w"], it["h"], it["i"]) for it in ref_its[50:]]
+    if resumed != expected:
+        raise AssertionError(f"{label}: resumed iterations {resumed[:3]}... "
+                             f"expected {expected[:3]}...")
+    same, rel = _rel_diff(its, ref_its[50:])
+    diff = int(abs(_read_png(out) - _read_png(ref_out)).max())
+    print(f"resume [{label}]: {len(its)} iterations from scale 3 iteration 11; "
+          f"losses bit-identical to the uninterrupted run: {same}, max rel diff "
+          f"{rel:.3g} (limit {RESUME_RTOL}); output max diff {diff}/255 (limit 1); "
+          f"launches {launches} (expected {expect})")
+    if not rel <= RESUME_RTOL:
+        raise AssertionError(f"{label}: resumed losses differ from the uninterrupted run")
+    if diff > 1:
+        raise AssertionError(f"{label}: resumed output differs by {diff}/255")
+    if launches != expect:
+        raise AssertionError(f"{label}: launches {launches}, expected {expect}")
+    for w, h, secs, size in writes:
+        print(f"  checkpoint write at {w}x{h} on the writer thread: {secs * 1e3:.1f} ms, "
+              f"{size / 2**20:.2f} MiB")
+
+
+def _resume_phase(tmp, content_path, style_path):
+    import torch
+
+    with _timed_checkpoint_writes() as writes:
+        # Two runs of phase 4's pyramid under cuDNN's default algorithm
+        # choice, for the spread the resume check cannot use.
+        for label, flags in (("adam-trace", []),
+                             ("lbfgs-lyap", ["--optimizer", "lbfgs", "--w2-grad", "lyap"])):
+            again, _, _ = _run_cli(tmp, content_path, style_path, f"{label}-again", flags)
+            first = json.loads((tmp / f"trace_{label}.json").read_text())["iterates"]
+            same, rel = _rel_diff(again, first)
+            print(f"two uninterrupted runs [{label}] under cuDNN's default algorithms: "
+                  f"bit-identical {same}, max rel loss diff {rel:.3g}")
+        # The resume is held to an uninterrupted run under cuDNN's
+        # deterministic algorithms, for this phase only (the main path keeps
+        # the default).
+        torch.backends.cudnn.deterministic = True
+        try:
+            for label, flags, expect in (
+                    ("adam-trace", [], {"ns_sqrtm_yz": 200, "ns_sqrtm": 0, "lyap_bwd": 0}),
+                    ("lbfgs-lyap", ["--optimizer", "lbfgs", "--w2-grad", "lyap"],
+                     {"ns_sqrtm_yz": 0, "ns_sqrtm": 200, "lyap_bwd": 200})):
+                _resume_leg(tmp, content_path, style_path, label, flags, expect, writes)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        # One print-size scale three ways (and plain again, for the spread):
+        # ms/iter from iteration 10 to 30, past the first chunk's warm-up.
+        big = ["--min-scale", str(BIG_SCALE), "--end-scale", str(BIG_SCALE), "-ii", "30",
+               "--callback-chunk", "10"]
+        for label, flags in (("plain", []),
+                             ("checkpoint", ["--checkpoint", str(tmp / "ck_big.npz"),
+                                             "--checkpoint-every", "10"]),
+                             ("save", ["--save-every", "10"]), ("plain again", [])):
+            del writes[:]
+            its, _, _ = _run_cli(tmp, content_path, style_path,
+                                 f"big-{label.replace(' ', '-')}", big + flags)
+            if [(it["w"], it["h"]) for it in its] != [BIG_CANVAS] * 30:
+                raise AssertionError(f"{BIG_CANVAS} [{label}]: unexpected iterations")
+            ms = (its[29]["time"] - its[9]["time"]) / 20 * 1e3
+            print(f"{BIG_CANVAS[0]}x{BIG_CANVAS[1]} [{label}]: {ms:.2f} ms/iter over "
+                  "iterations 11-30")
+            for w, h, secs, size in writes:
+                print(f"  checkpoint write at {w}x{h} on the writer thread: "
+                      f"{secs * 1e3:.1f} ms, {size / 2**20:.2f} MiB")
+
+
+def _web_phase(tmp, content_path, style_path):
+    """Phase 4's pyramid with ``--web``: a client connected as the server
+    starts reads the page, the events and, after WIDone, the image."""
+    import io
+
+    from PIL import Image
+
+    from style_transfer_tpu_torch import srgb_profile
+    from style_transfer_tpu_torch.web import client, server
+
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    seen = {"events": [], "errors": []}
+    made = []
+
+    class Watched(server.WebInterface):
+        def __init__(self, host, port_):
+            super().__init__(host, port_)
+            made.append(self)
+            status, body, headers = client.get(host, port_, "/")
+            seen["page"] = (status, headers.get("Content-Type"), len(body))
+            stream = client.EventStream(host, port_, timeout=120)
+
+            def read():
+                try:
+                    with stream:
+                        for event in stream:
+                            seen["events"].append(event)
+                            if event["_type"] == "WIDone":
+                                status, body, _ = client.get(host, port_, "/image")
+                                with Image.open(io.BytesIO(body)) as jpeg:
+                                    seen["image"] = (
+                                        status, jpeg.format, jpeg.size,
+                                        jpeg.info.get("icc_profile") == srgb_profile)
+                except Exception as err:
+                    seen["errors"].append(repr(err))
+
+            self.reader = threading.Thread(target=read, daemon=True)
+            self.reader.start()
+
+    live = server.WebInterface
+    server.WebInterface = Watched
+    try:
+        its, _, launches = _run_cli(tmp, content_path, style_path, "web",
+                                    ["--web", "--host", "127.0.0.1", "--port", str(port)])
+    finally:
+        server.WebInterface = live
+    (wi,) = made
+    wi.reader.join(30)
+    if wi.reader.is_alive() or wi.process.is_alive():
+        raise AssertionError("web: the client or the server process is still running")
+    events = seen["events"]
+    iterates = [e for e in events if e["_type"] == "STIterate"]
+    print(f"web preview: page {seen.get('page')}, {len(iterates)} STIterate events "
+          f"(of {len(its)} iterations; a full queue drops frames), last event "
+          f"{events[-1]['_type'] if events else None}, image {seen.get('image')}, "
+          f"client errors {seen['errors']}, launches {launches}")
+    page = seen.get("page")
+    if page is None or page[0] != 200 or not page[1].startswith("text/html"):
+        raise AssertionError(f"web: GET / gave {page}")
+    if not iterates or events[-1]["_type"] != "WIDone":
+        raise AssertionError("web: no STIterate, or WIDone not last")
+    if not {(e["w"], e["h"]) for e in iterates} <= set(PYRAMID):
+        raise AssertionError("web: an STIterate of a size not on the pyramid")
+    if seen.get("image") != (200, "JPEG", PYRAMID[-1], True):
+        raise AssertionError(f"web: GET /image gave {seen.get('image')}")
+    if launches["ns_sqrtm_yz"] != 400:
+        raise AssertionError(f"web: launches {launches}")
+    ref = _by_scale(json.loads((tmp / "trace_adam-trace.json").read_text())["iterates"])
+    for (w, h), s in _by_scale(its).items():
+        r = ref[(w, h)]
+        print(f"  {w}x{h}: {(s[-1]['time'] - s[0]['time']) / 19 * 1e3:.2f} ms/iter "
+              f"with --web, {(r[-1]['time'] - r[0]['time']) / 19 * 1e3:.2f} without "
+              "(phase 4)")
+
+
+def _bf16_phase(tmp, content_path, style_path):
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from style_transfer_tpu_torch.engine import _pil_to_nchw
+    from style_transfer_tpu_torch.models import vgg as V
+    from style_transfer_tpu_torch.models.weights import params_from_jax, random_params
+
+    params = params_from_jax(random_params(0), DEVICE)
+    with Image.open(content_path) as c:
+        image = _pil_to_nchw(c.convert("RGB"), (512, 384), DEVICE)
+    taps = (1, 6, 11, 20, 22, 29)
+    with torch.no_grad():
+        f32 = V.extract_features(params, image, taps)
+        bf16 = V.extract_features(V.cast_params(params, torch.bfloat16), image, taps,
+                                  compute_dtype=torch.bfloat16)
+    errs = {l: ((bf16[l].float() - f32[l]).abs().max() / f32[l].abs().max()).item()
+            for l in taps}
+    # Free the taps and weights before the CLI run, whose peak memory
+    # per scale would otherwise count them.
+    del f32, bf16, params, image
+    torch.cuda.empty_cache()
+    print("bf16 trunk against FP32 at 512x384, max err of max per tap: "
+          + ", ".join(f"{l}: {e:.2e}" for l, e in errs.items())
+          + f" (limit {BF16_TAP_TOL})")
+    if not max(errs.values()) <= BF16_TAP_TOL:
+        raise AssertionError("bf16 taps differ from FP32 past the limit")
+    _cli_phase(tmp, content_path, style_path, "adam-trace-bf16", ["--precision", "bf16"],
+               {"ns_sqrtm_yz": 400, "ns_sqrtm": 0, "lyap_bwd": 0})
+    a = _read_png(tmp / "out_adam-trace-bf16.png").astype(np.float64)
+    b = _read_png(tmp / "out_adam-trace.png").astype(np.float64)
+    mse = np.mean((a - b) ** 2) / 255.0 ** 2
+    print(f"bf16 pyramid output against the FP32 one (phase 4): PSNR "
+          f"{10 * np.log10(1.0 / max(mse, 1e-12)):.2f} dB, max diff "
+          f"{np.abs(a - b).max():.0f}/255")
 
 
 def main():
@@ -537,6 +854,12 @@ def main():
                        ["--optimizer", "lbfgs", "--w2-grad", "lyap"], lyap_path)
             phase = "steady state of the step"
             _steady_phase(content_path, style_path)
+            phase = "checkpoint/resume through the CLI"
+            _resume_phase(tmp, content_path, style_path)
+            phase = "the web preview"
+            _web_phase(tmp, content_path, style_path)
+            phase = "the bf16 trunk"
+            _bf16_phase(tmp, content_path, style_path)
     except Exception:
         traceback.print_exc()
         print(f"chip_smoke.py: FAILED in phase: {phase}", file=sys.stderr)

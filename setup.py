@@ -10,7 +10,7 @@ setup(
     ]),
     package_data={
         "style_transfer_tpu": ["srgb.icc", "web/static/*"],
-        "style_transfer_tpu_torch": ["srgb.icc", "csrc/*.cu"],
+        "style_transfer_tpu_torch": ["srgb.icc", "csrc/*.cu", "csrc/*.cuh", "web/static/*"],
     },
     install_requires=[
         "aiohttp",

@@ -6,15 +6,21 @@ implements, with engine hyperparameter flags
 taking their defaults and types from ``StyleTransfer.stylize``'s keyword
 defaults/annotations, so CLI and engine cannot drift. ``--devices`` names one
 torch device (default ``cuda:0``; ``cpu`` when named). ``--profile DIR``
-records a ``torch.profiler`` trace of the run into DIR.
+records a ``torch.profiler`` trace of the run into DIR. Mid-run image saves
+run on a writer thread; ``--checkpoint``/``--resume`` continue an
+interrupted run; ``--web`` serves a live preview; ``--precision bf16`` runs
+the VGG trunk in bf16.
 
     style-transfer-tpu-torch content.jpg style.jpg -o out.png
 """
 
 import argparse
+import atexit
 import contextlib
 import os
 import sys
+import threading
+import webbrowser
 from pathlib import Path
 
 from .io_color import load_image, print_error, save_image
@@ -24,48 +30,114 @@ from .utils.trace import TraceRecorder
 __doc_short__ = "Neural style transfer in PyTorch (CUDA), W2/Gram losses over VGG-19."
 
 
+class _AsyncImageSaver:
+    """Background writer for mid-run image saves (single slot, latest wins).
+
+    The payload is a device tensor from ``StyleTransfer.get_image_device``,
+    a fresh tensor the run never writes: its device-to-host fetch, the
+    encode and the disk write all run on this thread, off the iteration
+    loop."""
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        self._pending = None
+        self._busy = False
+        threading.Thread(target=self._run, name="stt-save", daemon=True).start()
+
+    def _run(self):
+        from .engine import tensor_to_image
+
+        while True:
+            with self._cond:
+                while self._pending is None:
+                    self._cond.wait()
+                path, image, image_type = self._pending
+                self._pending = None
+                self._busy = True
+            try:
+                if not hasattr(image, "save") and image_type is not None:
+                    image = tensor_to_image(image, image_type)
+                save_image(path, image)
+            except (OSError, ValueError) as err:
+                print_error(err)
+            finally:
+                del image  # release the device tensor now
+            with self._cond:
+                self._busy = False
+                self._cond.notify_all()
+
+    def submit(self, path, image, image_type=None):
+        with self._cond:
+            self._pending = (path, image, image_type)
+            self._cond.notify_all()
+
+    def flush(self):
+        with self._cond:
+            while self._pending is not None or self._busy:
+                self._cond.wait()
+
+
 class Callback:
-    """Per-iteration progress: tqdm line, periodic saves, trace.
+    """Per-iteration progress: tqdm line, periodic saves, web events, trace.
 
     Behavior parity with reference cli.py:107-140: the image is saved every
     ``--save-every`` iterations and at the end of every scale but the last
-    (``main`` writes the final one)."""
+    (``main`` writes the final one, synchronously after a flush, so the
+    output on disk is never stale). Mid-run saves are asynchronous."""
 
-    def __init__(self, st, args, image_type="pil"):
+    def __init__(self, st, args, image_type="pil", web_interface=None):
         self.st = st
         self.args = args
         self.image_type = image_type
+        self.web_interface = web_interface
         self.recorder = TraceRecorder(args)
         self.progress = None
+        self.saver = _AsyncImageSaver()
+
+    def _is_final_scale(self, iterate):
+        # The aligned final canvas, not the raw end_scale: with --align the
+        # final dims need not equal end_scale.
+        final = getattr(self.args, "final_dims", None)
+        if final is not None:
+            return (iterate.w, iterate.h) == tuple(final)
+        return max(iterate.w, iterate.h) == self.args.end_scale
 
     def _save(self):
-        try:
-            save_image(self.args.output, self.st.get_image(self.image_type))
-        except (OSError, ValueError) as err:
-            print_error(err)
+        self.saver.submit(self.args.output, self.st.get_image_device(),
+                          self.image_type)
 
     def __call__(self, iterate):
         from tqdm import tqdm
 
         self.recorder.append(iterate)
         if iterate.i == 1 or self.progress is None:
+            # Lazy creation also covers resumed runs, whose first callback
+            # arrives mid-scale with i > 1.
             self.progress = tqdm(
                 total=iterate.i_max, initial=iterate.i - 1, dynamic_ncols=True)
         msg = "Size: {}x{}, iteration: {}, loss: {:g}"
         tqdm.write(msg.format(iterate.w, iterate.h, iterate.i, iterate.loss))
         self.progress.update()
+        if self.web_interface is not None:
+            self.web_interface.put_iterate(iterate, self.st.get_image_tensor())
         if iterate.i == iterate.i_max:
             self.progress.close()
             self.progress = None
-            if (iterate.w, iterate.h) != tuple(self.args.final_dims):
+            if not self._is_final_scale(iterate):
                 self._save()
+            elif self.web_interface is not None:
+                self.web_interface.put_done()
         elif iterate.i % self.args.save_every == 0:
             self._save()
 
     def close(self):
+        self.saver.flush()
         if self.progress is not None:
             self.progress.close()
             self.progress = None
+
+    def get_trace(self):
+        return self.recorder.get_trace()
 
 
 def build_parser(stylize_fn):
@@ -126,12 +198,25 @@ def build_parser(stylize_fn):
     p.add_argument("--proof", type=str, default=None,
                    help="the ICC color profile (CMYK) for soft proofing the "
                         "content and styles")
+    p.add_argument("--web", default=False, action="store_true",
+                   help="enable the web interface")
+    p.add_argument("--host", type=str, default="0.0.0.0",
+                   help="the host the web interface binds to")
+    p.add_argument("--port", type=int, default=8080,
+                   help="the port the web interface binds to")
+    p.add_argument("--browser", type=str, default="", nargs="?",
+                   help="open a web browser (specify the browser if not "
+                        "system default)")
     p.add_argument("--style-loss", type=str, default="w2", choices=["w2", "gram"],
                    help="style objective: Wasserstein-2 or Gram matrix")
     p.add_argument("--content-loss", type=str, default="mse",
                    choices=["mse", "scaled"],
                    help="content objective: plain MSE (reference default) or "
                         "gradient-normalized ScaledMSE")
+    p.add_argument("--precision", type=str, default="auto",
+                   choices=["auto", "bf16", "f32"],
+                   help="VGG trunk precision (auto = f32; the statistics and "
+                        "the matrix square roots stay f32)")
     p.add_argument("--w2-grad", type=str, default="trace",
                    choices=["trace", "lyap"],
                    help="W2 sqrt-term gradient: analytic trace VJP (exact, "
@@ -148,6 +233,13 @@ def build_parser(stylize_fn):
                    help="where to write the run trace")
     p.add_argument("--profile", type=str, default=None, metavar="DIR",
                    help="record a torch.profiler trace of the run into DIR")
+    p.add_argument("--checkpoint", **arg_info("checkpoint"),
+                   help="path to write full optimization-state checkpoints")
+    p.add_argument("--checkpoint-every", **arg_info("checkpoint_every"),
+                   help="iterations between checkpoint writes (scale ends "
+                        "always checkpoint; writes are asynchronous)")
+    p.add_argument("--resume", default=False, action="store_true",
+                   help="resume from --checkpoint if it exists")
     return p
 
 
@@ -224,6 +316,15 @@ def main(argv=None):
         end_scale = get_safe_scale(*content_img.size, end_scale)
     args.end_scale = end_scale
 
+    web_interface = None
+    if args.web:
+        from .web.server import WebInterface
+
+        # Raises when the server cannot start: a run asked for a preview
+        # never goes on without one.
+        web_interface = WebInterface(args.host, args.port)
+        atexit.register(web_interface.close)
+
     print("Loading model...")
     st = StyleTransfer(
         device=device,
@@ -232,6 +333,7 @@ def main(argv=None):
         style_loss=args.style_loss,
         content_loss=args.content_loss,
         w2_grad=args.w2_grad,
+        compute_dtype=args.precision,
         callback_chunk=args.callback_chunk,
     )
     st.seed(args.random_seed)
@@ -239,7 +341,14 @@ def main(argv=None):
     args.final_dims = st.canvas(content_img.size, args.end_scale, args.align)
     print(f"VGG-19 weights: {st.weights_source}")
 
-    callback = Callback(st, args, image_type=image_type)
+    callback = Callback(st, args, image_type=image_type,
+                        web_interface=web_interface)
+    if args.web:
+        url = f"http://{args.host}:{args.port}/"
+        if args.browser:
+            webbrowser.get(args.browser).open(url)
+        elif args.browser is None:
+            webbrowser.open(url)
     defaults = StyleTransfer.stylize.__kwdefaults__
     st_kwargs = {k: v for k, v in args.__dict__.items() if k in defaults}
     profile_cm = (_profiler(args.profile, device) if args.profile
@@ -250,7 +359,11 @@ def main(argv=None):
     except KeyboardInterrupt:
         pass
     finally:
+        # Drains the in-flight async save first, so it cannot land after
+        # (and clobber) the final image written below.
         callback.close()
+        if web_interface is not None:
+            web_interface.close()
 
     output_image = st.get_image(image_type)
     if output_image is not None:

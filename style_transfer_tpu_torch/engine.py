@@ -7,19 +7,22 @@ Port of ``style_transfer_tpu/engine.py`` for the optimizers ``adam`` and
 callback contract, host-side ``numpy.random.RandomState`` inits
 (bit-identical to the JAX package's), per-scale target capture with
 multi-style blending over (mean, second raw moment), the Adam-moment
-warm-start at each scale crossing, and a fresh L-BFGS history at each scale.
+warm-start at each scale crossing, a fresh L-BFGS history at each scale,
+and checkpoint/resume in the JAX package's file format (``utils/checkpoint.py``).
 
 Tensors are NCHW on ``device``. ``get_image_tensor`` returns the JAX
 package's ``(H, W, 3)`` float array; ``get_image`` a PIL image or a uint16
-array. Everything runs in FP32: on CUDA, ``stylize`` turns TF32 off for
-matmuls and cuDNN convolutions, because the Newton-Schulz square root
-diverges under single-pass low-precision products and parity with the
-reference needs FP32 convolutions.
+array. The VGG trunk runs in FP32 by default or in bf16
+(``compute_dtype``); everything else runs in FP32: on CUDA, ``stylize``
+turns TF32 off for matmuls and cuDNN convolutions, because the
+Newton-Schulz square root diverges under single-pass low-precision products
+and parity with the reference needs FP32 convolutions.
 """
 
 import contextlib
 import math
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -27,10 +30,11 @@ import torch.nn.functional as F
 from PIL import Image
 
 from .models import weights as W
-from .models.vgg import extract_features
+from .models.vgg import cast_params, extract_features
 from .ops import losses as L
 from .step import (
     AdamState,
+    LBFGSState,
     LoopState,
     StepConfig,
     adam_init,
@@ -39,7 +43,8 @@ from .step import (
     make_adam_runner,
     make_lbfgs_runner,
 )
-from .utils.ema import ema_get, ema_init
+from .utils.checkpoint import AsyncCheckpointWriter, load_checkpoint, unpack_rng_state
+from .utils.ema import EMAState, ema_get, ema_init
 from .utils.scales import align_size, gen_scales, size_to_fit
 from .utils.trace import STIterate, peak_device_ram, reset_peak_device_ram
 
@@ -69,6 +74,30 @@ def _scale_adam(opt: AdamState, hw) -> AdamState:
     mu = _resize_image(opt.mu, hw, "bicubic")
     nu = torch.clamp(_resize_image(opt.nu, hw, "bilinear"), min=0.0)
     return AdamState(mu=mu, nu=nu, count=opt.count)
+
+
+def _to_nhwc(x):
+    """NCHW (or (m, N, C, H, W)) tensor -> the checkpoint's channels-last
+    layout, as a view: the copy happens at the writer's host fetch."""
+    return x.movedim(-3, -1)
+
+
+def _from_nhwc(arr, device):
+    """A checkpoint's channels-last array -> a contiguous tensor on ``device``
+    with the channels at dim -3."""
+    x = torch.from_numpy(np.ascontiguousarray(arr))
+    return x.movedim(-1, -3).contiguous().to(device)
+
+
+def _resolve_compute_dtype(compute_dtype):
+    """'auto' | 'f32' | 'float32' | None -> None (FP32 trunk); 'bf16' |
+    'bfloat16' -> torch.bfloat16. The JAX package's 'auto' picks bf16 only
+    on a TPU, so here it is FP32 on every device."""
+    if compute_dtype in (None, "auto", "f32", "float32"):
+        return None
+    if compute_dtype in ("bf16", "bfloat16"):
+        return torch.bfloat16
+    raise ValueError(f"unknown compute_dtype {compute_dtype!r}")
 
 
 @contextlib.contextmanager
@@ -102,6 +131,9 @@ class StyleTransfer:
       content_loss: 'mse' (reference default) or 'scaled'.
       w2_grad: 'trace' (analytic ½·A^{-1/2} VJP, the default) or 'lyap'
         (the reference's iterative Lyapunov backward).
+      compute_dtype: VGG trunk dtype: 'auto' (FP32 on every device; the JAX
+        package picks bf16 only on a TPU), 'f32'/'float32' or
+        'bf16'/'bfloat16'.
       callback_chunk: iterations per host sync. Telemetry is emitted per
         iteration; wall-times within a chunk are interpolated.
     """
@@ -115,6 +147,7 @@ class StyleTransfer:
         style_loss: str = "w2",
         content_loss: str = "mse",
         w2_grad: str = "trace",
+        compute_dtype="auto",
         callback_chunk: int = 50,
     ):
         self.device = torch.device(device)
@@ -128,6 +161,7 @@ class StyleTransfer:
         self.style_loss = style_loss
         self.content_loss = content_loss
         self.w2_grad = w2_grad
+        self.compute_dtype = _resolve_compute_dtype(compute_dtype)
         self.callback_chunk = int(callback_chunk)
 
         # Default layer configuration (Gatys et al. 2015 taps, reference
@@ -143,11 +177,14 @@ class StyleTransfer:
         else:
             params, self.weights_source = W.resolve_params(weights)
         self.params = W.params_from_jax(params, self.device)
+        self._params_cast = None  # the params in compute_dtype, made once
 
         self.image = None  # (1, 3, H, W) f32 current iterate
         self.average = None  # EMAState
         self._last_cfg = self._last_consts = None
         self._rng = np.random.RandomState(0)
+        self._img_cache_key = None  # the EMAState the cached host image is of
+        self._img_cache = None
 
     # ------------------------------------------------------------------ API
 
@@ -155,11 +192,26 @@ class StyleTransfer:
         self._rng = np.random.RandomState(seed)
 
     def get_image_tensor(self):
-        """Current averaged iterate as an (H, W, 3) f32 ndarray in [0, 1]."""
+        """Current averaged iterate as an (H, W, 3) f32 ndarray in [0, 1].
+
+        Memoized on the EMA state object: the state changes once per chunk
+        but callbacks run per iteration, so the device is read once a chunk
+        however many callbacks (the web preview's feed) ask."""
         if self.average is None:
             return None
-        img = ema_get(self.average)[0].permute(1, 2, 0)
-        return np.clip(img.detach().cpu().numpy(), 0.0, 1.0)
+        if self._img_cache_key is not self.average:
+            img = ema_get(self.average)[0].permute(1, 2, 0)
+            self._img_cache = np.clip(img.detach().cpu().numpy(), 0.0, 1.0)
+            self._img_cache_key = self.average
+        return self._img_cache
+
+    def get_image_device(self):
+        """The averaged iterate clamped to [0, 1] as a (1, H, W, 3) tensor on
+        the device: a fresh tensor that the optimization never writes, so a
+        saver thread can fetch it while the run goes on."""
+        if self.average is None:
+            return None
+        return torch.clamp(ema_get(self.average), 0.0, 1.0).permute(0, 2, 3, 1)
 
     def get_image(self, image_type: str = "pil"):
         if self.average is None:
@@ -173,7 +225,7 @@ class StyleTransfer:
             return None
         terms = build_loss_terms_fn(self._last_cfg)
         with _fp32_math(self.device), torch.no_grad():
-            out = terms(self.image, self.params, self._last_consts)
+            out = terms(self.image, self._step_params(), self._last_consts)
         return {k: float(v) for k, v in out.items()}
 
     def canvas(self, content_size, scale, align=None):
@@ -185,6 +237,15 @@ class StyleTransfer:
         return (cw, ch)
 
     # ------------------------------------------------------------ internals
+
+    def _step_params(self):
+        """The params as the trunk consumes them: cast to ``compute_dtype``
+        once per engine, not once per step."""
+        if self.compute_dtype is None:
+            return self.params
+        if self._params_cast is None:
+            self._params_cast = cast_params(self.params, self.compute_dtype)
+        return self._params_cast
 
     def _init_image(self, init, content_image, style_images, style_weights, hw):
         ch, cw = hw
@@ -224,9 +285,12 @@ class StyleTransfer:
     @torch.no_grad()
     def _capture_targets(self, content, style_images, style_weights, scale,
                          style_scale_fac, style_size, cfg):
-        """Per-scale content/style targets (once per scale, FP32)."""
+        """Per-scale content/style targets (once per scale), with the trunk in
+        the step's dtype; the statistics are FP32."""
+        params = self._step_params()
         content_feats = extract_features(
-            self.params, content, self.content_layers, pooling=self.pooling)
+            params, content, self.content_layers, pooling=self.pooling,
+            compute_dtype=cfg.compute_dtype)
         consts = {
             "content": {l: content_feats[l] for l in self.content_layers},
             "style": {},
@@ -240,7 +304,8 @@ class StyleTransfer:
             print(f"Processing style image ({sw}x{sh})...")
             style = _pil_to_nchw(img, (sw, sh), self.device)
             feats = extract_features(
-                self.params, style, self.style_layers, pooling=self.pooling)
+                params, style, self.style_layers, pooling=self.pooling,
+                compute_dtype=cfg.compute_dtype)
             for layer in self.style_layers:
                 mean, srm = L.w2_moments(feats[layer])
                 stats = (mean, srm) if cfg.style_loss == "w2" else (srm,)
@@ -259,6 +324,62 @@ class StyleTransfer:
         return consts
 
     # --------------------------------------------------------------- stylize
+
+    def _load_resume(self, checkpoint, optimizer, scales, content_size, align):
+        """Loads ``checkpoint`` for a resume, refusing (with the JAX
+        package's messages) a state that this run cannot continue."""
+        resume_state = load_checkpoint(checkpoint)
+        ck_opt = resume_state.get("optimizer", "adam")
+        if ck_opt != optimizer:
+            raise ValueError(
+                f"checkpoint {checkpoint!r} was written with optimizer "
+                f"{ck_opt!r}; refusing to resume with {optimizer!r} "
+                "(the trajectories are not compatible)"
+            )
+        start = resume_state["scale_index"]
+        if start >= len(scales):
+            raise ValueError(
+                f"checkpoint scale index {start} is out of range "
+                f"for the current pyramid of {len(scales)} scales — were "
+                "--min-scale/--end-scale changed since the checkpoint?"
+            )
+        meta = resume_state.get("meta", {})
+        exp_cw, exp_ch = self.canvas(content_size, scales[start], align)
+        got = (meta.get("w"), meta.get("h"))
+        if None not in got and got != (exp_cw, exp_ch):
+            raise ValueError(
+                f"checkpoint geometry {got[0]}x{got[1]} does not match the "
+                f"recomputed canvas {exp_cw}x{exp_ch} at scale "
+                f"{start + 1} — content image or "
+                "--end-scale/--min-scale/--align changed since the "
+                "checkpoint was written"
+            )
+        if meta.get("transposed", False):
+            raise ValueError(
+                "checkpoint was written with internal orientation "
+                "transposed=True, which this package does not use — write "
+                "it with --transpose-wide off to resume it here"
+            )
+        if "rng" in resume_state and "rng_keys" in resume_state:
+            unpack_rng_state(self._rng, resume_state["rng"], resume_state["rng_keys"])
+        print(
+            f"Resuming from {checkpoint}: scale {start + 1}/"
+            f"{len(scales)}, iteration {resume_state['done_iters']}"
+        )
+        return resume_state
+
+    def _restored_opt(self, resume_state, optimizer):
+        """The optimizer state of a checkpoint, NCHW on the device."""
+        if optimizer == "adam":
+            return AdamState(mu=_from_nhwc(resume_state["adam_mu"], self.device),
+                             nu=_from_nhwc(resume_state["adam_nu"], self.device),
+                             count=int(resume_state["adam_count"]))
+        fields = {}
+        for name in LBFGSState._fields:
+            arr = resume_state[f"lbfgs_{name}"]
+            fields[name] = (_from_nhwc(arr, self.device) if arr.ndim >= 4
+                            else torch.from_numpy(np.array(arr)).to(self.device))
+        return LBFGSState(**fields)
 
     def stylize(
         self,
@@ -280,6 +401,9 @@ class StyleTransfer:
         style_size: int = None,
         align: int = None,
         callback=None,
+        checkpoint: str = None,
+        checkpoint_every: int = 500,
+        resume: bool = False,
     ):
         if optimizer == "lbfgs-zoom":
             raise NotImplementedError(
@@ -299,81 +423,160 @@ class StyleTransfer:
                 raise ValueError("style_images and style_weights must have the same length")
 
             scales = gen_scales(min_scale, end_scale)
-            cw, ch = self.canvas(content_image.size, scales[0], align)
-            self.image = self._init_image(
-                init, content_image, style_images, style_weights, (ch, cw))
+            resume_state = None
+            start_scale_idx = 0
+            if resume and checkpoint and Path(checkpoint).is_file():
+                resume_state = self._load_resume(
+                    checkpoint, optimizer, scales, content_image.size, align)
+                start_scale_idx = resume_state["scale_index"]
+                self.image = _from_nhwc(resume_state["image"], self.device)
+            else:
+                cw, ch = self.canvas(content_image.size, scales[0], align)
+                self.image = self._init_image(
+                    init, content_image, style_images, style_weights, (ch, cw))
 
-            opt_state = None
-            for scale in scales:
-                cw, ch = self.canvas(content_image.size, scale, align)
-                content = _pil_to_nchw(content_image, (cw, ch), self.device)
-                self.image = torch.clamp(_resize_image(self.image, (ch, cw)), 0.0, 1.0)
-                self.average = ema_init(self.image, avg_decay)
-
-                cfg = StepConfig(
-                    content_layers=tuple(self.content_layers),
-                    style_layers=tuple(self.style_layers),
-                    content_weights=tuple(content_weights),
-                    style_layer_weights=tuple(self.style_layer_weights),
-                    tv_weight=tv_weight,
-                    style_loss=self.style_loss,
-                    content_loss=self.content_loss,
-                    w2_grad=self.w2_grad,
-                    pooling=self.pooling,
-                    step_size=step_size,
-                    avg_decay=avg_decay,
-                )
-                actual_its = initial_iterations if scale == scales[0] else iterations
-
-                print(f"Processing content image ({cw}x{ch})...")
-                consts = self._capture_targets(
-                    content, style_images, style_weights, scale, style_scale_fac,
-                    style_size, cfg)
-                self._last_cfg, self._last_consts = cfg, consts
-
-                if optimizer == "adam":
-                    runner = make_adam_runner(cfg)
-                    if opt_state is None:
-                        opt_state = adam_init(self.image)
+            # Checkpoints are written on a background thread, every
+            # ``checkpoint_every`` iterations and at every scale end. The
+            # snapshot holds the chunk's own tensors, no copies: the runners
+            # build new tensors every step and never write one in place, so
+            # what the writer fetches is the state of the snapshot's
+            # iteration even while the next chunks run.
+            ckpt_writer = AsyncCheckpointWriter() if checkpoint is not None else None
+            iters_since_ckpt = 0
+            try:
+                opt_state = None
+                for scale_idx, scale in enumerate(scales):
+                    if scale_idx < start_scale_idx:
+                        continue
+                    resuming_here = (resume_state is not None
+                                     and scale_idx == start_scale_idx)
+                    cw, ch = self.canvas(content_image.size, scale, align)
+                    content = _pil_to_nchw(content_image, (cw, ch), self.device)
+                    if resuming_here:
+                        self.average = EMAState(
+                            value=_from_nhwc(resume_state["ema_value"], self.device),
+                            accum=torch.from_numpy(
+                                np.array(resume_state["ema_accum"])).to(self.device),
+                        )
                     else:
-                        opt_state = _scale_adam(opt_state, (ch, cw))
-                else:  # a fresh history at every scale, as the JAX engine
-                    runner = make_lbfgs_runner(cfg)
-                    opt_state = lbfgs_init(self.image)
-                state = LoopState(image=self.image, opt=opt_state, ema=self.average)
+                        self.image = torch.clamp(
+                            _resize_image(self.image, (ch, cw)), 0.0, 1.0)
+                        self.average = ema_init(self.image, avg_decay)
 
-                reset_peak_device_ram(self.device)
-                done = 0
-                t_prev = time.time()
-                while done < actual_its:
-                    n = min(self.callback_chunk, actual_its - done)
-                    state, losses_dev = runner(self.params, consts, state, n)
-                    losses = losses_dev.cpu().numpy().astype(np.float64)  # one sync
-                    self.image, self.average = state.image, state.ema
-                    t_now = time.time()
-                    if callback is not None:
-                        ram = peak_device_ram(self.device)
-                        for k in range(n):
-                            callback(STIterate(
-                                w=cw, h=ch, i=done + k + 1, i_max=actual_its,
-                                loss=float(losses[k]),
-                                time=t_prev + (t_now - t_prev) * (k + 1) / n,
-                                gpu_ram=ram,
-                            ))
-                    t_prev = t_now
-                    done += n
+                    cfg = StepConfig(
+                        content_layers=tuple(self.content_layers),
+                        style_layers=tuple(self.style_layers),
+                        content_weights=tuple(content_weights),
+                        style_layer_weights=tuple(self.style_layer_weights),
+                        tv_weight=tv_weight,
+                        style_loss=self.style_loss,
+                        content_loss=self.content_loss,
+                        w2_grad=self.w2_grad,
+                        pooling=self.pooling,
+                        step_size=step_size,
+                        avg_decay=avg_decay,
+                        compute_dtype=self.compute_dtype,
+                    )
+                    actual_its = initial_iterations if scale == scales[0] else iterations
 
-                opt_state = state.opt
-                # Each new scale starts from the previous scale's averaged
-                # iterate (ref :495-497).
-                self.image = torch.clamp(ema_get(state.ema), 0.0, 1.0)
-                self.average = state.ema
+                    print(f"Processing content image ({cw}x{ch})...")
+                    consts = self._capture_targets(
+                        content, style_images, style_weights, scale, style_scale_fac,
+                        style_size, cfg)
+                    self._last_cfg, self._last_consts = cfg, consts
+
+                    if resuming_here:
+                        opt_state = self._restored_opt(resume_state, optimizer)
+                    elif optimizer == "adam":
+                        opt_state = (adam_init(self.image) if opt_state is None
+                                     else _scale_adam(opt_state, (ch, cw)))
+                    else:  # a fresh history at every scale, as the JAX engine
+                        opt_state = lbfgs_init(self.image)
+                    runner = (make_adam_runner(cfg) if optimizer == "adam"
+                              else make_lbfgs_runner(cfg))
+                    state = LoopState(image=self.image, opt=opt_state, ema=self.average)
+
+                    reset_peak_device_ram(self.device)
+                    done = (min(resume_state["done_iters"], actual_its)
+                            if resuming_here else 0)
+                    t_prev = time.time()
+                    while done < actual_its:
+                        n = min(self.callback_chunk, actual_its - done)
+                        state, losses_dev = runner(self._step_params(), consts, state, n)
+                        losses = losses_dev.cpu().numpy().astype(np.float64)  # one sync
+                        self.image, self.average = state.image, state.ema
+                        done += n
+                        t_now = time.time()
+                        # The snapshot goes to the writer BEFORE the
+                        # callbacks, so an interrupt raised by a callback
+                        # still leaves a resumable checkpoint (the finally
+                        # below flushes the write in flight).
+                        if ckpt_writer is not None:
+                            iters_since_ckpt += n
+                            if iters_since_ckpt >= checkpoint_every or done >= actual_its:
+                                self._submit_checkpoint(
+                                    ckpt_writer, checkpoint, state, optimizer,
+                                    scale_idx, done, (cw, ch, scale))
+                                iters_since_ckpt = 0
+                        if callback is not None:
+                            ram = peak_device_ram(self.device)
+                            for k in range(n):
+                                callback(STIterate(
+                                    w=cw, h=ch, i=done - n + k + 1, i_max=actual_its,
+                                    loss=float(losses[k]),
+                                    time=t_prev + (t_now - t_prev) * (k + 1) / n,
+                                    gpu_ram=ram,
+                                ))
+                        t_prev = t_now
+
+                    opt_state = state.opt
+                    # Each new scale starts from the previous scale's averaged
+                    # iterate (ref :495-497).
+                    self.image = torch.clamp(ema_get(state.ema), 0.0, 1.0)
+                    self.average = state.ema
+            finally:
+                if ckpt_writer is not None:
+                    try:
+                        ckpt_writer.close()
+                    except Exception as err:
+                        print(f"Warning: checkpoint write failed: {err}")
         return self.get_image()
+
+    def _submit_checkpoint(self, writer, path, state, optimizer, scale_idx, done,
+                           geometry):
+        """Hands the chunk's state to the writer thread in the checkpoint's
+        channels-last layout (views; the writer fetches and copies)."""
+        if writer.error is not None:
+            print(f"Warning: checkpoint write failed: {writer.error}")
+            writer.error = None
+        cw, ch, scale = geometry
+        if optimizer == "adam":
+            opt = {"adam": AdamState(mu=_to_nhwc(state.opt.mu),
+                                     nu=_to_nhwc(state.opt.nu), count=state.opt.count)}
+        else:
+            opt = {"lbfgs": LBFGSState(*(_to_nhwc(f) if f.ndim >= 4 else f
+                                         for f in state.opt))}
+        rng = np.random.RandomState()
+        rng.set_state(self._rng.get_state())  # a copy: the live one may advance
+        writer.submit(
+            path,
+            image=_to_nhwc(state.image),
+            ema=EMAState(value=_to_nhwc(state.ema.value), accum=state.ema.accum),
+            scale_index=scale_idx,
+            done_iters=done,
+            meta={"w": cw, "h": ch, "scale": scale, "transposed": False},
+            optimizer=optimizer,
+            rng=rng,
+            **opt,
+        )
 
 
 def tensor_to_image(arr, image_type: str = "pil"):
-    """(H, W, 3) [0,1] float array -> PIL / uint16 ndarray (reference
-    get_image semantics, :335-347)."""
+    """(H, W, 3) or (1, H, W, 3) [0,1] float array -> PIL / uint16 ndarray
+    (reference get_image semantics, :335-347). A torch tensor is fetched
+    from its device here, so a writer thread can call it."""
+    if isinstance(arr, torch.Tensor):
+        arr = arr.detach().cpu().numpy()
     arr = np.clip(np.asarray(arr), 0.0, 1.0)
     if arr.ndim == 4:
         arr = arr[0]

@@ -1,8 +1,11 @@
-"""VGG-19 feature extractor at reference semantics (NCHW, FP32).
+"""VGG-19 feature extractor at reference semantics (NCHW).
 
 Port of ``style_transfer_tpu/models/vgg.py::extract_features`` without its
 TPU layout variants: a plain function over an explicit parameter dict of
-OIHW kernels (see ``weights.params_from_jax``).
+OIHW kernels (see ``weights.params_from_jax``). The trunk runs in FP32 or,
+with ``compute_dtype=torch.bfloat16``, in bf16 from the first conv on (the
+cast comes after ``normalize``, as the JAX trunk's off a TPU); the losses
+upcast every tap to FP32.
 
 * layer numbering = torchvision ``features`` indices (default taps
   [1,6,11,20,29] style / [22] content);
@@ -32,6 +35,7 @@ __all__ = [
     "min_input_size",
     "feature_shape",
     "normalize",
+    "cast_params",
     "extract_features",
 ]
 
@@ -80,18 +84,28 @@ def normalize(x):
     return (x - mean) / std
 
 
-def extract_features(params, image, layers: Sequence[int], pooling: str = "max"):
+def cast_params(params, dtype):
+    """The conv weights in ``dtype`` (one copy, made once per engine and
+    dtype, so the step casts nothing)."""
+    return {k: v.to(dtype) for k, v in params.items()}
+
+
+def extract_features(params, image, layers: Sequence[int], pooling: str = "max",
+                     compute_dtype=None):
     """Run the VGG-19 trunk up to the last requested layer.
 
     Args:
-      params: dict of ``conv{i}_kernel`` (OIHW) / ``conv{i}_bias`` tensors.
+      params: dict of ``conv{i}_kernel`` (OIHW) / ``conv{i}_bias`` tensors;
+        for a bf16 trunk pass them already cast (``cast_params``).
       image: NCHW float image in [0, 1] (sRGB).
       layers: torchvision feature indices to tap (sorted set semantics).
       pooling: 'max' | 'average' | 'l2'.
+      compute_dtype: dtype of the trunk (``torch.bfloat16``), or None for
+        the image's own (FP32).
 
     Returns:
       dict mapping ``INPUT`` (-1) -> the raw image and each tapped index ->
-      its NCHW activation.
+      its NCHW activation, in the trunk's dtype.
     """
     layers = sorted(set(int(l) for l in layers))
     last = layers[-1]
@@ -102,10 +116,14 @@ def extract_features(params, image, layers: Sequence[int], pooling: str = "max")
     pool_scale = POOLING_SCALES[pooling]
     feats = {INPUT: image}
     x = normalize(image)
+    if compute_dtype is not None:
+        x = x.to(compute_dtype)
     wanted = set(layers)
     for i in range(last + 1):
         if i in _CONV_SET:
-            kernel, bias = params[f"conv{i}_kernel"], params[f"conv{i}_bias"]
+            # A no-op when the params are already in the trunk's dtype.
+            kernel = params[f"conv{i}_kernel"].to(x.dtype)
+            bias = params[f"conv{i}_bias"].to(x.dtype)
             if i == 0:  # conv1_1: replicate padding (reference :38-39)
                 x = F.conv2d(replicate_pad2d(x, 1), kernel, bias)
             else:

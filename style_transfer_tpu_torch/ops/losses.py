@@ -1,4 +1,4 @@
-"""Loss functions for optimization-based style transfer (NCHW, FP32).
+"""Loss functions for optimization-based style transfer (NCHW).
 
 Port of ``style_transfer_tpu/ops/losses.py``. Feature maps are NCHW here
 (the JAX package's are NHWC; tests transpose at the boundary); statistics
@@ -15,7 +15,9 @@ Port of ``style_transfer_tpu/ops/losses.py``. Feature maps are NCHW here
 * ``tv_loss``      — L2 total variation, nine-point stencil on a
   replicate-padded image.
 
-Every matmul and einsum here is full FP32: on CUDA the callers run with
+Every tap is upcast to FP32 before its moments, Gram and content MSE (the
+JAX package's ``_f32``), so a bf16 trunk leaves the objective in FP32; TV
+takes the FP32 image. Every matmul and einsum here is full FP32: on CUDA the callers run with
 ``allow_tf32`` off, because the covariance feeds a Newton-Schulz square root
 that diverges under single-pass low-precision products. The W2 square root
 goes through the dispatching ``ops/cuda/ns_sqrtm.py::sqrtm_ns_lyap``: on a
@@ -47,15 +49,20 @@ __all__ = [
 ]
 
 
+def _f32(x):
+    """FP32 view of a tap (the tensor itself when it is FP32 already)."""
+    return x.float()
+
+
 def scaled_mse(x, target, eps: float = 1e-8):
     """MSE scaled such that its gradient L1 norm is approximately 1."""
-    diff = x - target
+    diff = _f32(x) - _f32(target)
     return torch.sum(diff * diff) / (torch.sum(torch.abs(diff)) + eps)
 
 
 def content_mse(x, target):
     """Plain MSE content loss (the one the reference engine uses)."""
-    diff = x - target
+    diff = _f32(x) - _f32(target)
     return torch.mean(diff * diff)
 
 
@@ -65,8 +72,8 @@ def content_scaled(x, target, eps: float = 1e-8):
 
 
 def _srm_outer(feats):
-    """(N, C, H, W) -> (N, C, C) sum over pixels of f f^T."""
-    f = feats.flatten(2)
+    """(N, C, H, W) -> (N, C, C) sum over pixels of f f^T, in FP32."""
+    f = _f32(feats).flatten(2)
     return f @ f.transpose(1, 2)
 
 
@@ -92,6 +99,7 @@ class W2Target(NamedTuple):
 def w2_moments(feats):
     """Mean (N, C) and second raw moment (N, C, C) of NCHW features."""
     h, w = feats.shape[2:4]
+    feats = _f32(feats)
     mean = torch.mean(feats, dim=(2, 3))
     srm = _srm_outer(feats) / (h * w)
     return mean, srm

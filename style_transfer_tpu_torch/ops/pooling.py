@@ -57,5 +57,14 @@ def pool2x2(x, mode: str):
 
 
 def replicate_pad2d(x, pad: int = 1):
-    """Edge-replicate padding on the spatial dims of an NCHW tensor."""
-    return F.pad(x, (pad, pad, pad, pad), mode="replicate")
+    """Edge-replicate padding on the spatial dims of an NCHW tensor.
+
+    Built from edge slices and ``torch.cat``, not ``F.pad(mode="replicate")``,
+    whose CUDA backward adds the border gradients with atomics: two runs of
+    the step would then differ in the last bits, and a resumed run could
+    not equal an uninterrupted one. Here autograd sums them in a fixed order.
+    """
+    x = torch.cat([x[:, :, :1].expand(-1, -1, pad, -1), x,
+                   x[:, :, -1:].expand(-1, -1, pad, -1)], dim=2)
+    return torch.cat([x[:, :, :, :1].expand(-1, -1, -1, pad), x,
+                      x[:, :, :, -1:].expand(-1, -1, -1, pad)], dim=3)

@@ -16,7 +16,7 @@ is gradient, a fixed-step L-BFGS update with no clamp, EMA.
 """
 
 from dataclasses import dataclass
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -66,6 +66,9 @@ class StepConfig:
     # coupled NS kernel's Z output; 'lyap' = the reference's iterative
     # Lyapunov backward through the full NS square root.
     w2_grad: str = "trace"
+    # Dtype of the VGG trunk: None runs it in FP32, ``torch.bfloat16`` in
+    # bf16 (the statistics, the NS kernels and TV stay FP32).
+    compute_dtype: Optional[torch.dtype] = None
 
     def __post_init__(self):
         if self.w2_grad not in ("trace", "lyap"):
@@ -142,11 +145,12 @@ def build_loss_fn(cfg: StepConfig):
         return total
 
     def loss_fn(image, params, consts):
-        feats = extract_features(params, image, cfg.all_layers, pooling=cfg.pooling)
+        feats = extract_features(params, image, cfg.all_layers, pooling=cfg.pooling,
+                                 compute_dtype=cfg.compute_dtype)
         moments = {l: L.w2_moments(feats[l]) for l in cfg.style_layers}
         content = 0.0
         for layer, w in zip(cfg.content_layers, cfg.content_weights):
-            diff = feats[layer] - consts["content"][layer]
+            diff = feats[layer].float() - consts["content"][layer].float()
             sse = torch.sum(diff * diff)
             if cfg.content_loss == "mse":
                 content = content + w * sse / diff.numel()
@@ -164,7 +168,8 @@ def build_loss_terms_fn(cfg: StepConfig):
     ``SumLoss(verbose=True)``). Plain PyTorch, off the optimization path."""
 
     def terms(image, params, consts):
-        feats = extract_features(params, image, cfg.all_layers, pooling=cfg.pooling)
+        feats = extract_features(params, image, cfg.all_layers, pooling=cfg.pooling,
+                                 compute_dtype=cfg.compute_dtype)
         out = {}
         content_fn = L.content_mse if cfg.content_loss == "mse" else L.content_scaled
         for layer, w in zip(cfg.content_layers, cfg.content_weights):

@@ -123,8 +123,8 @@ def test_cli_writes_output_and_trace(tmp_path, content_pil, style_pil):
     assert [it["i"] for it in t["iterates"]] == [1, 2, 3, 4, 5]
     assert all(np.isfinite(it["loss"]) for it in t["iterates"])
     assert t["args"]["devices"] == "cpu" and t["args"]["end_scale"] == 64
-    # Flags of later slices and TPU-only flags are absent.
-    for flag in (["--web"], ["--sqrtm", "xla"], ["--checkpoint", "x"],
+    # The optimizer of a later slice and TPU-only flags are absent.
+    for flag in (["--sqrtm", "xla"], ["--remat", "on"], ["--bands", "4"],
                  ["--optimizer", "lbfgs-zoom"]):
         with pytest.raises(SystemExit):
             tcli.build_parser(T.StyleTransfer.stylize).parse_args(
@@ -132,7 +132,9 @@ def test_cli_writes_output_and_trace(tmp_path, content_pil, style_pil):
 
 
 def test_port_imports_no_jax():
-    code = ("import sys, style_transfer_tpu_torch, style_transfer_tpu_torch.cli; "
+    code = ("import sys, style_transfer_tpu_torch, style_transfer_tpu_torch.cli, "
+            "style_transfer_tpu_torch.utils.checkpoint, "
+            "style_transfer_tpu_torch.web.server, style_transfer_tpu_torch.web.client; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'style_transfer_tpu' or m.startswith('style_transfer_tpu.')]; "
             "assert not bad, bad")

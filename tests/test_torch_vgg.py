@@ -92,3 +92,20 @@ def test_min_size_guard():
     with pytest.raises(ValueError, match="at least 16x16"):
         TV.extract_features(params_from_jax(PARAMS), torch.zeros(1, 3, 15, 40), (29,))
     assert TV.min_input_size((29,)) == JV.min_input_size((29,)) == 16
+
+
+@pytest.mark.parametrize("pad", [1, 2])
+def test_replicate_pad_equals_f_pad(pad):
+    """The cat-built replicate pad (whose backward sums in a fixed order)
+    gives F.pad's values exactly and its gradient to rounding."""
+    import torch.nn.functional as F
+
+    from style_transfer_tpu_torch.ops.pooling import replicate_pad2d
+
+    x = torch.randn(2, 3, 5, 7, dtype=torch.float64, requires_grad=True)
+    ours, ref = replicate_pad2d(x, pad), F.pad(x, (pad,) * 4, mode="replicate")
+    assert torch.equal(ours, ref)
+    g = torch.randn_like(ref)
+    (a,) = torch.autograd.grad(ours, x, g)
+    (b,) = torch.autograd.grad(ref, x, g)
+    torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12)
