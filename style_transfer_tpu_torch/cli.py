@@ -1,8 +1,8 @@
 """Command-line interface of the PyTorch port.
 
-Port of ``style_transfer_tpu/cli.py`` for the Adam and reference L-BFGS
-pyramids with either W2 gradient: the reference flag surface that the port
-implements, with engine hyperparameter flags
+Port of ``style_transfer_tpu/cli.py`` for the Adam, reference L-BFGS and
+zoom L-BFGS pyramids with either W2 gradient: the reference flag surface
+that the port implements, with engine hyperparameter flags
 taking their defaults and types from ``StyleTransfer.stylize``'s keyword
 defaults/annotations, so CLI and engine cannot drift. ``--devices`` names one
 torch device (default ``cuda:0``; ``cpu`` when named). ``--profile DIR``
@@ -168,9 +168,10 @@ def build_parser(stylize_fn):
     p.add_argument("--tv-weight", "-tw", **arg_info("tv_weight"),
                    help="the smoothing weight")
     p.add_argument("--optimizer", **arg_info("optimizer"),
-                   choices=["adam", "lbfgs"],
+                   choices=["adam", "lbfgs", "lbfgs-zoom"],
                    help="the optimizer to use (lbfgs = the reference's "
-                        "fixed-step flavor)")
+                        "fixed-step flavor; lbfgs-zoom adds a zoom "
+                        "linesearch)")
     p.add_argument("--min-scale", "-ms", **arg_info("min_scale"),
                    help="the minimum scale (max image dim), in pixels")
     p.add_argument("--end-scale", "-s", type=str, default="512",

@@ -1,14 +1,15 @@
 """StyleTransfer engine: the sqrt(2) pyramid over the Adam or L-BFGS step.
 
-Port of ``style_transfer_tpu/engine.py`` for the optimizers ``adam`` and
-``lbfgs`` (the reference's fixed-step L-BFGS) and both W2 gradients
-(``trace`` and the reference's ``lyap``): the same ``StyleTransfer``/
-``stylize`` surface and defaults, the same per-iteration ``STIterate``
-callback contract, host-side ``numpy.random.RandomState`` inits
-(bit-identical to the JAX package's), per-scale target capture with
-multi-style blending over (mean, second raw moment), the Adam-moment
-warm-start at each scale crossing, a fresh L-BFGS history at each scale,
-and checkpoint/resume in the JAX package's file format (``utils/checkpoint.py``).
+Port of ``style_transfer_tpu/engine.py`` for the optimizers ``adam``,
+``lbfgs`` (the reference's fixed-step L-BFGS) and ``lbfgs-zoom`` (optax's
+L-BFGS with a zoom line search) and both W2 gradients (``trace`` and the
+reference's ``lyap``): the same ``StyleTransfer``/``stylize`` surface and
+defaults, the same per-iteration ``STIterate`` callback contract, host-side
+``numpy.random.RandomState`` inits (bit-identical to the JAX package's),
+per-scale target capture with multi-style blending over (mean, second raw
+moment), the Adam-moment warm-start at each scale crossing, a fresh L-BFGS
+state at each scale, and checkpoint/resume in the JAX package's file
+format (``utils/checkpoint.py``; not for ``lbfgs-zoom``, as there).
 
 Tensors are NCHW on ``device``. ``get_image_tensor`` returns the JAX
 package's ``(H, W, 3)`` float array; ``get_image`` a PIL image or a uint16
@@ -19,7 +20,6 @@ Newton-Schulz square root diverges under single-pass low-precision products
 and parity with the reference needs FP32 convolutions.
 """
 
-import contextlib
 import math
 import time
 from pathlib import Path
@@ -30,7 +30,7 @@ import torch.nn.functional as F
 from PIL import Image
 
 from .models import weights as W
-from .models.vgg import cast_params, extract_features
+from .models.vgg import cast_params, extract_features, fp32_math
 from .ops import losses as L
 from .step import (
     AdamState,
@@ -42,6 +42,8 @@ from .step import (
     lbfgs_init,
     make_adam_runner,
     make_lbfgs_runner,
+    make_lbfgs_zoom_runner,
+    zoom_lbfgs_init,
 )
 from .utils.checkpoint import AsyncCheckpointWriter, load_checkpoint, unpack_rng_state
 from .utils.ema import EMAState, ema_get, ema_init
@@ -98,25 +100,6 @@ def _resolve_compute_dtype(compute_dtype):
     if compute_dtype in ("bf16", "bfloat16"):
         return torch.bfloat16
     raise ValueError(f"unknown compute_dtype {compute_dtype!r}")
-
-
-@contextlib.contextmanager
-def _fp32_math(device):
-    """Full-FP32 matmuls and cuDNN convolutions on CUDA for the duration.
-
-    TF32 (cuDNN's default for float32 convolutions) keeps about three
-    decimal digits: the Newton-Schulz chain diverges under such single-pass
-    products, and the trunk would leave parity with the FP32 reference."""
-    if device.type != "cuda":
-        yield
-        return
-    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
 class StyleTransfer:
@@ -224,7 +207,7 @@ class StyleTransfer:
         if self.image is None or self._last_cfg is None:
             return None
         terms = build_loss_terms_fn(self._last_cfg)
-        with _fp32_math(self.device), torch.no_grad():
+        with fp32_math(self.device), torch.no_grad():
             out = terms(self.image, self._step_params(), self._last_consts)
         return {k: float(v) for k, v in out.items()}
 
@@ -405,12 +388,9 @@ class StyleTransfer:
         checkpoint_every: int = 500,
         resume: bool = False,
     ):
-        if optimizer == "lbfgs-zoom":
-            raise NotImplementedError(
-                "optimizer 'lbfgs-zoom' is not ported yet, see ROADMAP")
-        if optimizer not in ("adam", "lbfgs"):
+        if optimizer not in _RUNNERS:
             raise ValueError("optimizer must be one of 'adam', 'lbfgs', 'lbfgs-zoom'")
-        with _fp32_math(self.device):
+        with fp32_math(self.device):
             min_scale = min(min_scale, end_scale)
             content_weights = [content_weight / len(self.content_layers)] * len(
                 self.content_layers)
@@ -441,7 +421,15 @@ class StyleTransfer:
             # build new tensors every step and never write one in place, so
             # what the writer fetches is the state of the snapshot's
             # iteration even while the next chunks run.
-            ckpt_writer = AsyncCheckpointWriter() if checkpoint is not None else None
+            if checkpoint is not None and optimizer == "lbfgs-zoom":
+                print(
+                    "Warning: --checkpoint supports the adam and lbfgs "
+                    "optimizers; no checkpoints will be written for this "
+                    "lbfgs-zoom run (its optax state is not serialized)."
+                )
+            ckpt_writer = (AsyncCheckpointWriter()
+                           if checkpoint is not None and optimizer != "lbfgs-zoom"
+                           else None)
             iters_since_ckpt = 0
             try:
                 opt_state = None
@@ -490,10 +478,12 @@ class StyleTransfer:
                     elif optimizer == "adam":
                         opt_state = (adam_init(self.image) if opt_state is None
                                      else _scale_adam(opt_state, (ch, cw)))
-                    else:  # a fresh history at every scale, as the JAX engine
+                    elif optimizer == "lbfgs":
+                        # A fresh state at every scale, as the JAX engine.
                         opt_state = lbfgs_init(self.image)
-                    runner = (make_adam_runner(cfg) if optimizer == "adam"
-                              else make_lbfgs_runner(cfg))
+                    else:
+                        opt_state = zoom_lbfgs_init(self.image)
+                    runner = _RUNNERS[optimizer](cfg)
                     state = LoopState(image=self.image, opt=opt_state, ema=self.average)
 
                     reset_peak_device_ram(self.device)
@@ -569,6 +559,10 @@ class StyleTransfer:
             rng=rng,
             **opt,
         )
+
+
+_RUNNERS = {"adam": make_adam_runner, "lbfgs": make_lbfgs_runner,
+            "lbfgs-zoom": make_lbfgs_zoom_runner}
 
 
 def tensor_to_image(arr, image_type: str = "pil"):

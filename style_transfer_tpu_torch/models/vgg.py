@@ -19,6 +19,7 @@ Tensors here are NCHW; the JAX package's are NHWC, so tests comparing the
 two transpose at the boundary.
 """
 
+import contextlib
 import functools
 from typing import Sequence
 
@@ -37,6 +38,7 @@ __all__ = [
     "normalize",
     "cast_params",
     "extract_features",
+    "fp32_math",
 ]
 
 # Key for the raw (pre-normalization) input image in the feats dict.
@@ -69,6 +71,25 @@ def feature_shape(layer: int, h: int, w: int):
     for _ in range(pools):
         h, w = h // 2, w // 2
     return h, w, c
+
+
+@contextlib.contextmanager
+def fp32_math(device):
+    """Full-FP32 matmuls and cuDNN convolutions on CUDA for the duration.
+
+    TF32 (cuDNN's default for float32 convolutions) keeps about three
+    decimal digits: the Newton-Schulz chain diverges under such single-pass
+    products, and the trunk would leave parity with the FP32 reference."""
+    if device.type != "cuda":
+        yield
+        return
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
 @functools.lru_cache(maxsize=None)

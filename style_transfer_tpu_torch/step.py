@@ -1,5 +1,5 @@
-"""The optimization step: the W2/content/TV objective, the Adam runner and
-the reference L-BFGS runner.
+"""The optimization step: the W2/content/TV objective, the Adam runner, the
+reference L-BFGS runner and the L-BFGS runner with a zoom line search.
 
 Port of the monolithic path of ``style_transfer_tpu/step.py``: the loss is
 the VGG forward, per-layer moments -> covariance, the square-root term of
@@ -12,7 +12,9 @@ square root with the iterative Lyapunov backward, both kernels.
 The runners are eager loops in the reference's order that keep the
 per-iteration losses on the device and leave the sync to the caller, once
 per chunk: Adam is gradient (image only), Adam, clamp to [0, 1], EMA; L-BFGS
-is gradient, a fixed-step L-BFGS update with no clamp, EMA.
+is gradient, a fixed-step L-BFGS update with no clamp, EMA; L-BFGS with the
+zoom line search is gradient, the L-BFGS direction and a line search along
+it (which reads each trial's value and slope to the host), no clamp, EMA.
 """
 
 from dataclasses import dataclass
@@ -25,6 +27,7 @@ from .models.vgg import INPUT, extract_features
 from .ops import losses as L
 from .ops.cuda.ns_sqrtm import sqrtm_ns_lyap, trace_sqrtm_ns
 from .utils.ema import EMAState, ema_update
+from .zoom_lbfgs import ZoomLBFGSState, zoom_lbfgs_init, zoom_lbfgs_update
 
 __all__ = [
     "StepConfig",
@@ -38,6 +41,8 @@ __all__ = [
     "lbfgs_step",
     "make_adam_runner",
     "make_lbfgs_runner",
+    "make_lbfgs_zoom_runner",
+    "zoom_lbfgs_init",
 ]
 
 
@@ -91,7 +96,7 @@ class AdamState(NamedTuple):
 
 class LoopState(NamedTuple):
     image: torch.Tensor  # NCHW f32 (in [0, 1] under Adam's clamp)
-    opt: "AdamState | LBFGSState"
+    opt: "AdamState | LBFGSState | ZoomLBFGSState"
     ema: EMAState
 
 
@@ -209,21 +214,27 @@ def _adam_apply(cfg: StepConfig, opt: AdamState, g):
 
 def _make_runner(cfg: StepConfig, apply):
     """Returns ``run(params, consts, state, n_steps) -> (state, losses)``:
-    ``n_steps`` iterations of gradient (image only) -> ``apply(opt, image,
-    g) -> (image, opt)`` -> EMA, with the per-iteration losses in an
-    (n_steps,) tensor on the image's device."""
+    ``n_steps`` iterations of loss and gradient (image only) -> ``apply(opt,
+    image, g, loss, value_and_grad) -> (image, opt)`` -> EMA, with the
+    per-iteration losses in an (n_steps,) tensor on the image's device.
+    ``value_and_grad(x)`` is the loss and its gradient at another image,
+    each call one autograd graph, freed before it returns."""
     loss_fn = build_loss_fn(cfg)
 
     def run(params, consts, state: LoopState, n_steps: int):
-        image, opt, ema = state
-        losses = torch.empty(n_steps, dtype=torch.float32, device=image.device)
-        for k in range(n_steps):
+        def value_and_grad(image):
             x = image.detach().requires_grad_(True)
             loss = loss_fn(x, params, consts)
             (g,) = torch.autograd.grad(loss, x)
-            image, opt = apply(opt, image, g)
+            return loss.detach(), g
+
+        image, opt, ema = state
+        losses = torch.empty(n_steps, dtype=torch.float32, device=image.device)
+        for k in range(n_steps):
+            loss, g = value_and_grad(image)
+            image, opt = apply(opt, image, g, loss, value_and_grad)
             ema = ema_update(ema, image, cfg.avg_decay)
-            losses[k] = loss.detach()
+            losses[k] = loss
         return LoopState(image=image, opt=opt, ema=ema), losses
 
     return run
@@ -233,7 +244,7 @@ def make_adam_runner(cfg: StepConfig):
     """The Adam runner (see :func:`_make_runner`): gradient -> Adam -> clamp
     to [0, 1] -> EMA."""
 
-    def apply(opt, image, g):
+    def apply(opt, image, g, *_):
         update, opt = _adam_apply(cfg, opt, g)
         return torch.clamp(image - update, 0.0, 1.0), opt
 
@@ -371,4 +382,17 @@ def make_lbfgs_runner(cfg: StepConfig):
     Python lists, whose host-side decisions would sync the stream every
     iteration.
     """
-    return _make_runner(cfg, lambda opt, image, g: lbfgs_step(opt, image, g, lr=1.0))
+    return _make_runner(cfg, lambda opt, image, g, *_: lbfgs_step(opt, image, g, lr=1.0))
+
+
+def make_lbfgs_zoom_runner(cfg: StepConfig):
+    """The ``lbfgs-zoom`` runner (see :func:`_make_runner`): loss and
+    gradient -> ``optax.lbfgs(memory_size=10)`` with its zoom line search
+    (``zoom_lbfgs.py``), whose trials evaluate the same loss -> EMA, with
+    ``state.opt`` a ``ZoomLBFGSState`` (``zoom_lbfgs_init``). No clamp and
+    ``cfg.step_size`` ignored, as the JAX runner. As there, the loss and
+    gradient at each iterate are computed anew, not taken from the line
+    search's last trial, so the evaluations equal the reference's."""
+    return _make_runner(
+        cfg, lambda opt, image, g, loss, value_and_grad: zoom_lbfgs_update(
+            opt, image, loss, g, value_and_grad))

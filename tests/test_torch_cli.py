@@ -33,6 +33,22 @@ def test_optimizer_lbfgs_runs(files):
     assert all(np.isfinite(it["loss"]) for it in t["iterates"])
 
 
+def test_optimizer_lbfgs_zoom_runs(files, capsys):
+    """``--optimizer lbfgs-zoom`` runs; with ``--checkpoint`` it warns, as
+    the JAX engine, and writes no file."""
+    argv, trace = files
+    ck = trace.parent / "ck.npz"
+    tcli.main(argv + ["--optimizer", "lbfgs-zoom", "--end-scale", "48", "-ii", "4",
+                      "--checkpoint", str(ck), "--checkpoint-every", "2"])
+    t = json.loads(trace.read_text())
+    assert t["args"]["optimizer"] == "lbfgs-zoom"
+    assert [it["i"] for it in t["iterates"]] == [1, 2, 3, 4]
+    losses = [it["loss"] for it in t["iterates"]]
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+    assert "no checkpoints will be written for this lbfgs-zoom run" in capsys.readouterr().out
+    assert not ck.exists()
+
+
 def test_end_scale_plus(files):
     """``--end-scale N+`` caps the total pixels of a non-square canvas."""
     argv, trace = files

@@ -97,11 +97,13 @@ def test_init_modes_bit_identical_to_jax(init, content_pil, style_pil):
 
 
 def test_lyap_and_other_optimizers_are_refused(content_pil, style_pil):
-    """w2_grad='lyap' and optimizer='lbfgs' are ported; the optimizer still
-    to port is refused by name, an unknown one as in the JAX engine."""
+    """Every optimizer of the JAX engine runs, lbfgs-zoom here with the lyap
+    gradient; an unknown one is refused as in the JAX engine."""
     st = T.StyleTransfer(device="cpu", weights=PARAMS, w2_grad="lyap")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        st.stylize(content_pil, [style_pil], optimizer="lbfgs-zoom")
+    its = _run(st, content_pil, [style_pil], optimizer="lbfgs-zoom", min_scale=48,
+               end_scale=48, iterations=3, initial_iterations=3)
+    assert [i.i for i in its] == [1, 2, 3]
+    assert its[-1].loss < its[0].loss
     with pytest.raises(ValueError, match="optimizer must be one of"):
         st.stylize(content_pil, [style_pil], optimizer="sgd")
 
@@ -123,19 +125,25 @@ def test_cli_writes_output_and_trace(tmp_path, content_pil, style_pil):
     assert [it["i"] for it in t["iterates"]] == [1, 2, 3, 4, 5]
     assert all(np.isfinite(it["loss"]) for it in t["iterates"])
     assert t["args"]["devices"] == "cpu" and t["args"]["end_scale"] == 64
-    # The optimizer of a later slice and TPU-only flags are absent.
+    # TPU-only flags and unknown optimizers are absent; lbfgs-zoom is offered.
+    parser = tcli.build_parser(T.StyleTransfer.stylize)
     for flag in (["--sqrtm", "xla"], ["--remat", "on"], ["--bands", "4"],
-                 ["--optimizer", "lbfgs-zoom"]):
+                 ["--optimizer", "sgd"]):
         with pytest.raises(SystemExit):
-            tcli.build_parser(T.StyleTransfer.stylize).parse_args(
-                ["c", "s", *flag])
+            parser.parse_args(["c", "s", *flag])
+    assert parser.parse_args(["c", "s", "--optimizer", "lbfgs-zoom"]).optimizer == "lbfgs-zoom"
 
 
 def test_port_imports_no_jax():
     code = ("import sys, style_transfer_tpu_torch, style_transfer_tpu_torch.cli, "
             "style_transfer_tpu_torch.utils.checkpoint, "
-            "style_transfer_tpu_torch.web.server, style_transfer_tpu_torch.web.client; "
+            "style_transfer_tpu_torch.web.server, style_transfer_tpu_torch.web.client, "
+            "style_transfer_tpu_torch.zoom_lbfgs, style_transfer_tpu_torch.utils.metrics, "
+            "style_transfer_tpu_torch.utils.lpips, "
+            "style_transfer_tpu_torch.models.fingerprint; "
+            "sys.path.insert(0, 'tools'); import fidelity_torch; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+            "or m == 'optax' or m.startswith('optax.') "
             "or m == 'style_transfer_tpu' or m.startswith('style_transfer_tpu.')]; "
             "assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(REPO))
