@@ -71,7 +71,25 @@ each of which exits non-zero on failure:
     package's CPU trunk) reproduced by the card's FP32 trunk; LPIPS (alex
     and vgg16, random bundles) on the card against the CPU to rtol 1e-4;
     PSNR, SSIM and the VGG-distance proxy (on the card) of phase 9's bf16
-    output against phase 4's FP32 output.
+    output against phase 4's FP32 output;
+12. the sharded path (``parallel/``): ranks that share the one card under
+    gloo, started by the CLI's ``--devices cuda:0 cuda:0`` (this checks
+    function, not scaling: the ranks share one H100, and NCCL refuses two
+    ranks on one device). The backend, world size and grid are printed,
+    and each rank's kernel launches, peak memory and time in the halo
+    exchanges and all-reduces come from the ``ranks`` entry of the trace:
+    - phase 4's pyramid on 2 ranks (2x1): per-scale losses against phase
+      4's to rtol 1e-3, exactly 400 B1 launches on each rank, the gathered
+      output's PSNR against phase 4's printed;
+    - one 1448x1086 scale (``--align 1``, phase 7's canvas), 30 iterations
+      on 2 ranks: ms/iter beside phase 7's plain run, per-rank peak memory,
+      halo and all-reduce ms per iteration, losses against phase 7's plain
+      run to rtol 1e-3;
+    - 4 ranks (2x2) at 512x384, 20 iterations, against the one-device run
+      to rtol 1e-3;
+    - (lbfgs, lyap) over 128 -> 256 from the gray init on 2 ranks, 10
+      iterations a scale: B2 and B3 launches on each rank equal to the
+      one-device run's (120 each), losses to rtol 1e-3.
 
 Everything but phase 9, the bf16 rows of phase 6 and the bf16 output of
 phase 11 runs in FP32 (TF32 off for matmuls and cuDNN). The weights are the
@@ -113,6 +131,7 @@ ZOOM_CPU_RTOL = 5e-3
 RESUME_RTOL = 1e-5
 LPIPS_RTOL = 1e-4
 BF16_TAP_TOL = 5e-2  # of max, the JAX package's bound (tests/test_vgg.py)
+SHARDED_RTOL = 1e-3  # sharded against one-device card runs: the CPU bar
 PYRAMID = [(128, 96), (181, 136), (256, 192), (362, 272), (512, 384)]
 BIG_SCALE, BIG_CANVAS = 1448, (1448, 1086)  # a print-size scale of the content
 DEVICE = "cuda:0"
@@ -1021,6 +1040,97 @@ def _fidelity_phase(tmp):
         raise AssertionError(f"perceptual distance {dist} ({kind})")
 
 
+def _sharded_cli(tmp, content_path, style_path, label, flags, world):
+    """A CLI run with ``--devices`` naming the card ``world`` times; returns
+    (iterates, output path, the trace's per-rank report)."""
+    its, out, launches = _run_cli(tmp, content_path, style_path, label,
+                                  flags + ["--devices"] + [DEVICE] * world)
+    if any(launches.values()):
+        raise AssertionError(f"{label}: the launching process ran kernels {launches}")
+    ranks = json.loads((tmp / f"trace_{label}.json").read_text())["ranks"]
+    for r in ranks:
+        print(f"  rank {r['rank']} ({r['device']}, {r['grid'][0]}x{r['grid'][1]}, "
+              f"{r['backend']}): launches {r['kernel_launches']}, peak memory "
+              f"{r['peak_memory'] / 2**20:.1f} MiB, halo {r['halo_s'] * 1e3 / len(its):.2f} "
+              f"ms/iter ({r['halo_calls']} calls), all-reduce "
+              f"{r['reduce_s'] * 1e3 / len(its):.2f} ms/iter ({r['reduce_calls']} calls)")
+    if [r["rank"] for r in ranks] != list(range(world)):
+        raise AssertionError(f"{label}: ranks {[r['rank'] for r in ranks]}")
+    return its, out, ranks
+
+
+def _check_close(label, its, ref_its):
+    import numpy as np
+
+    if [(i["w"], i["h"], i["i"]) for i in its] != [(i["w"], i["h"], i["i"]) for i in ref_its]:
+        raise AssertionError(f"{label}: iterations differ from the one-device run's")
+    _, rel = _rel_diff(its, ref_its)
+    by = {}
+    for it, ref in zip(its, ref_its):
+        by.setdefault((it["w"], it["h"]), []).append(abs(it["loss"] - ref["loss"]) / abs(ref["loss"]))
+    print(f"  {label}: max rel loss diff against one device {rel:.3g} (limit "
+          f"{SHARDED_RTOL}); per scale " + ", ".join(
+              f"{w}x{h}: {max(v):.2e}" for (w, h), v in by.items()))
+    if not np.isfinite(rel) or rel > SHARDED_RTOL:
+        raise AssertionError(f"{label}: sharded losses differ from one device's")
+
+
+def _sharded_phase(tmp, content_path, style_path, main_path):
+    """Phase 12 (see the module docstring); ``main_path`` is phase 4's
+    launches, which each rank of the same pyramid must equal."""
+    import numpy as np
+
+    from style_transfer_tpu_torch.parallel.mesh import factor_devices, pick_backend
+
+    for world in (2, 4):
+        print(f"sharded runs: world {world}, grid {'x'.join(map(str, factor_devices(world)))}, "
+              f"backend {pick_backend([DEVICE] * world)} (ranks share {DEVICE}: function "
+              "only, not scaling)")
+    trace = lambda label: json.loads((tmp / f"trace_{label}.json").read_text())["iterates"]
+
+    its, out, ranks = _sharded_cli(tmp, content_path, style_path, "sharded-adam-trace", [], 2)
+    _check_pyramid(its, out)
+    _check_close("2 ranks against phase 4", its, trace("adam-trace"))
+    for r in ranks:
+        if r["kernel_launches"] != main_path:
+            raise AssertionError(f"rank {r['rank']} launches {r['kernel_launches']}, "
+                                 f"phase 4 {main_path}")
+    a = _read_png(out).astype(np.float64)
+    b = _read_png(tmp / "out_adam-trace.png").astype(np.float64)
+    mse = np.mean((a - b) ** 2) / 255.0 ** 2
+    print(f"  2-rank pyramid output against phase 4's: PSNR "
+          f"{10 * np.log10(1.0 / max(mse, 1e-12)):.2f} dB, max diff {np.abs(a - b).max():.0f}/255")
+
+    big = ["--min-scale", str(BIG_SCALE), "--end-scale", str(BIG_SCALE), "-ii", "30",
+           "--callback-chunk", "10", "--align", "1"]
+    its, _, ranks = _sharded_cli(tmp, content_path, style_path, "sharded-big", big, 2)
+    if [(it["w"], it["h"]) for it in its] != [BIG_CANVAS] * 30:
+        raise AssertionError("sharded 1448x1086: unexpected iterations")
+    plain = trace("big-plain")
+    ms, plain_ms = ((t[29]["time"] - t[9]["time"]) / 20 * 1e3 for t in (its, plain))
+    print(f"  {BIG_CANVAS[0]}x{BIG_CANVAS[1]} on 2 ranks sharing the card: {ms:.2f} ms/iter "
+          f"over iterations 11-30; one device (phase 7, plain): {plain_ms:.2f} ms/iter")
+    _check_close("1448x1086 on 2 ranks against phase 7's plain run", its, plain)
+
+    one = ["--min-scale", "512", "--end-scale", "512", "-ii", "20"]
+    ref, _, _ = _run_cli(tmp, content_path, style_path, "one-512", one)
+    its, _, _ = _sharded_cli(tmp, content_path, style_path, "sharded-512-2x2", one, 4)
+    _check_close("4 ranks (2x2) at 512x384", its, ref)
+
+    # 10 iterations a scale: past about 12, the reference L-BFGS from the
+    # gray init is not determined to float32 precision (on the CPU at 64x48,
+    # one thread against four parts its iteration 13 by 27%; ROADMAP C).
+    lyap = ["--optimizer", "lbfgs", "--w2-grad", "lyap", "--init", "gray",
+            "--end-scale", "256", "-i", "10", "-ii", "10"]
+    ref, _, expect = _run_cli(tmp, content_path, style_path, "one-lbfgs-lyap", lyap)
+    its, _, ranks = _sharded_cli(tmp, content_path, style_path, "sharded-lbfgs-lyap", lyap, 2)
+    _check_close("(lbfgs, lyap) from the gray init on 2 ranks", its, ref)
+    print(f"  one-device launches {expect}")
+    if (DEVICE != "cpu" and expect["ns_sqrtm"] != 120) or any(
+            r["kernel_launches"] != expect for r in ranks):
+        raise AssertionError(f"(lbfgs, lyap) rank launches differ from one device's {expect}")
+
+
 def main():
     if not (REPO / "style_transfer_tpu_torch" / "__init__.py").is_file():
         print("chip_smoke.py: style_transfer_tpu_torch not found beside this "
@@ -1068,6 +1178,8 @@ def main():
             _zoom_phase(tmp, content_path, style_path)
             phase = "fidelity on the card"
             _fidelity_phase(tmp)
+            phase = "the sharded path"
+            _sharded_phase(tmp, content_path, style_path, main_path)
     except Exception:
         traceback.print_exc()
         print(f"chip_smoke.py: FAILED in phase: {phase}", file=sys.stderr)

@@ -4,19 +4,27 @@ Port of ``style_transfer_tpu/cli.py`` for the Adam, reference L-BFGS and
 zoom L-BFGS pyramids with either W2 gradient: the reference flag surface
 that the port implements, with engine hyperparameter flags
 taking their defaults and types from ``StyleTransfer.stylize``'s keyword
-defaults/annotations, so CLI and engine cannot drift. ``--devices`` names one
-torch device (default ``cuda:0``; ``cpu`` when named). ``--profile DIR``
+defaults/annotations, so CLI and engine cannot drift. ``--devices`` takes
+the JAX CLI's three forms: a count of CUDA devices, ``all``, or device names
+(default ``cuda:0``; ``cpu`` when named). With more than one device the
+image is sharded over them, one process per device (``parallel/``); a name
+given twice (``cuda:0 cuda:0``, ``cpu cpu``) puts two ranks on one device.
+Started by torchrun, the CLI runs as that rank on ``cuda:LOCAL_RANK`` (or
+the CPU when ``--devices`` names it) and starts nothing. ``--profile DIR``
 records a ``torch.profiler`` trace of the run into DIR. Mid-run image saves
 run on a writer thread; ``--checkpoint``/``--resume`` continue an
 interrupted run; ``--web`` serves a live preview; ``--precision bf16`` runs
 the VGG trunk in bf16.
 
     style-transfer-tpu-torch content.jpg style.jpg -o out.png
+    style-transfer-tpu-torch content.jpg style.jpg --devices 2
+    torchrun --nproc-per-node 2 -m style_transfer_tpu_torch.cli content.jpg style.jpg
 """
 
 import argparse
 import atexit
 import contextlib
+import json
 import os
 import sys
 import threading
@@ -25,7 +33,7 @@ from pathlib import Path
 
 from .io_color import load_image, print_error, save_image
 from .utils.scales import get_safe_scale
-from .utils.trace import TraceRecorder
+from .utils.trace import TraceRecorder, peak_device_ram
 
 __doc_short__ = "Neural style transfer in PyTorch (CUDA), W2/Gram losses over VGG-19."
 
@@ -160,8 +168,12 @@ def build_parser(stylize_fn):
     p.add_argument("--style-weights", "-sw", type=float, nargs="+", default=None,
                    metavar="STYLE_WEIGHT",
                    help="the relative weights for each style image")
-    p.add_argument("--devices", type=str, default="cuda:0", metavar="DEVICE",
-                   help="the torch device to run on (e.g. cuda:0, cpu)")
+    p.add_argument("--devices", type=str, nargs="+", default=["cuda:0"],
+                   metavar="DEVICE",
+                   help="the devices to shard the image over: a CUDA device "
+                        "count, 'all', or torch device names (e.g. cuda:0 "
+                        "cuda:1, cpu); a name given twice puts two ranks on "
+                        "one device")
     p.add_argument("--random-seed", "-r", type=int, default=0, help="the random seed")
     p.add_argument("--content-weight", "-cw", **arg_info("content_weight"),
                    help="the content weight")
@@ -244,6 +256,23 @@ def build_parser(stylize_fn):
     return p
 
 
+def _resolve_devices(spec):
+    """``--devices`` -> a list of torch devices: a count (the first N CUDA
+    devices), 'all' (every CUDA device) or names, all of one type."""
+    import torch
+
+    if len(spec) == 1 and (spec[0] == "all" or spec[0].isdigit()):
+        count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        n = count if spec[0] == "all" else int(spec[0])
+        if not 1 <= n <= count:
+            raise RuntimeError(f"requested {spec[0]} CUDA devices but {count} available")
+        return [torch.device("cuda", i) for i in range(n)]
+    devices = [_resolve_device(name) for name in spec]
+    if len({d.type for d in devices}) > 1:
+        raise RuntimeError("devices must all be of one type")
+    return devices
+
+
 def _resolve_device(name):
     import torch
 
@@ -289,10 +318,76 @@ def _profiler(out_dir, device):
 
 def main(argv=None):
     from .engine import StyleTransfer  # deferred: torch import
+    from .parallel import multihost
 
     p = build_parser(StyleTransfer.stylize)
     args = p.parse_args(argv)
 
+    try:
+        devices = _resolve_devices(args.devices)
+    except RuntimeError as err:
+        print_error(err)
+        sys.exit(1)
+    if multihost.initialize(devices[0].type):
+        from .parallel.mesh import make_mesh
+
+        _rank_run(make_mesh(multihost.local_device(devices[0].type)), args)
+    elif len(devices) > 1:
+        import torch.multiprocessing as mp
+
+        from .parallel.launch import launch
+
+        if len(set(devices)) < len(devices):
+            print("Ranks share a device: this run checks the sharded path's "
+                  "function, not its speed.")
+        try:
+            launch(_rank_run, devices, (args,))
+        except (mp.ProcessRaisedException, mp.ProcessExitedException) as err:
+            print_error(err)
+            sys.exit(1)
+    else:
+        _run(args, devices[0])
+
+
+def _rank_run(mesh, args):
+    """One rank of a sharded run; ranks other than 0 print nothing."""
+    out = sys.stdout if mesh.rank == 0 else open(os.devnull, "w")
+    try:
+        with contextlib.redirect_stdout(out):
+            _run(args, mesh.device, mesh)
+    finally:
+        if out is not sys.stdout:
+            out.close()
+
+
+def _rank_report(mesh, st):
+    """Every rank's device, peak memory, kernel launches and time in the
+    halo exchanges and all-reduces, gathered for rank 0's trace."""
+    import torch.distributed as dist
+
+    from .ops.cuda import ns_sqrtm as K
+
+    stats = mesh.stats
+    mine = {
+        "rank": mesh.rank, "device": str(mesh.device), "grid": list(mesh.grid),
+        "backend": mesh.backend,
+        "peak_memory": peak_device_ram(st.device),
+        "kernel_launches": {k: getattr(K, k).launches
+                            for k in ("ns_sqrtm_yz", "ns_sqrtm", "lyap_bwd")},
+        "halo_s": stats.halo_s, "halo_calls": stats.halo_calls,
+        "reduce_s": stats.reduce_s, "reduce_calls": stats.reduce_calls,
+    }
+    ranks = [None] * mesh.world
+    dist.all_gather_object(ranks, mine)
+    return ranks
+
+
+def _run(args, device, mesh=None):
+    """The run on one device, or as one rank of a sharded run (``mesh``):
+    only rank 0 prints, serves the preview, profiles and writes files."""
+    from .engine import StyleTransfer
+
+    rank0 = mesh is None or mesh.rank == 0
     try:
         content_img = load_image(args.content, args.proof)
         style_imgs = [load_image(img, args.proof) for img in args.styles]
@@ -304,12 +399,10 @@ def main(argv=None):
     if Path(args.output).suffix.lower() in {".tif", ".tiff"}:
         image_type = "np_uint16"
 
-    try:
-        device = _resolve_device(args.devices)
-    except RuntimeError as err:
-        print_error(err)
-        sys.exit(1)
     print("Using device:", device)
+    if mesh is not None:
+        print(f"Rank {mesh.rank} of {mesh.world} ({mesh.grid[0]}x{mesh.grid[1]} grid, "
+              f"{mesh.backend} backend)")
     print_hardware_banner(device)
 
     end_scale = int(str(args.end_scale).rstrip("+"))
@@ -318,7 +411,7 @@ def main(argv=None):
     args.end_scale = end_scale
 
     web_interface = None
-    if args.web:
+    if args.web and rank0:
         from .web.server import WebInterface
 
         # Raises when the server cannot start: a run asked for a preview
@@ -336,15 +429,16 @@ def main(argv=None):
         w2_grad=args.w2_grad,
         compute_dtype=args.precision,
         callback_chunk=args.callback_chunk,
+        mesh=mesh,
     )
     st.seed(args.random_seed)
     # The final canvas, used by the callback to detect the last scale.
     args.final_dims = st.canvas(content_img.size, args.end_scale, args.align)
     print(f"VGG-19 weights: {st.weights_source}")
 
-    callback = Callback(st, args, image_type=image_type,
-                        web_interface=web_interface)
-    if args.web:
+    callback = (Callback(st, args, image_type=image_type, web_interface=web_interface)
+                if rank0 else None)
+    if web_interface is not None:
         url = f"http://{args.host}:{args.port}/"
         if args.browser:
             webbrowser.get(args.browser).open(url)
@@ -352,7 +446,7 @@ def main(argv=None):
             webbrowser.open(url)
     defaults = StyleTransfer.stylize.__kwdefaults__
     st_kwargs = {k: v for k, v in args.__dict__.items() if k in defaults}
-    profile_cm = (_profiler(args.profile, device) if args.profile
+    profile_cm = (_profiler(args.profile, device) if args.profile and rank0
                   else contextlib.nullcontext())
     try:
         with profile_cm:
@@ -362,10 +456,18 @@ def main(argv=None):
     finally:
         # Drains the in-flight async save first, so it cannot land after
         # (and clobber) the final image written below.
-        callback.close()
+        if callback is not None:
+            callback.close()
         if web_interface is not None:
             web_interface.close()
 
+    trace = callback.get_trace() if rank0 else None
+    if mesh is not None:
+        ranks = _rank_report(mesh, st)
+        if rank0:
+            trace["ranks"] = ranks
+    if not rank0:
+        return
     output_image = st.get_image(image_type)
     if output_image is not None:
         try:
@@ -373,7 +475,8 @@ def main(argv=None):
         except (OSError, ValueError) as err:
             print_error(err)
             sys.exit(1)
-    callback.recorder.write(args.trace)
+    with open(args.trace, "w") as fp:
+        json.dump(trace, fp, indent=4)
 
 
 if __name__ == "__main__":

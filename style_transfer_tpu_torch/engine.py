@@ -18,6 +18,13 @@ array. The VGG trunk runs in FP32 by default or in bf16
 turns TF32 off for matmuls and cuDNN convolutions, because the
 Newton-Schulz square root diverges under single-pass low-precision products
 and parity with the reference needs FP32 convolutions.
+
+With a ``mesh`` (``parallel/mesh.py``) the engine is one rank of a sharded
+run: every rank calls ``stylize`` with the same arguments, holds its slab of
+each scale's canvas (the canvas snapped to shard-divisible sizes as the JAX
+engine's), gathers the whole image and Adam's moments to cross a scale and
+re-slices them, and takes part in every gather; only rank 0 runs the
+callbacks and writes checkpoints.
 """
 
 import math
@@ -32,6 +39,7 @@ from PIL import Image
 from .models import weights as W
 from .models.vgg import cast_params, extract_features, fp32_math
 from .ops import losses as L
+from .parallel.mesh import broadcast, gather_image, shard_image
 from .step import (
     AdamState,
     LBFGSState,
@@ -47,7 +55,7 @@ from .step import (
 )
 from .utils.checkpoint import AsyncCheckpointWriter, load_checkpoint, unpack_rng_state
 from .utils.ema import EMAState, ema_get, ema_init
-from .utils.scales import align_size, gen_scales, size_to_fit
+from .utils.scales import align_size, gen_scales, shard_align_size, size_to_fit
 from .utils.trace import STIterate, peak_device_ram, reset_peak_device_ram
 
 __all__ = ["StyleTransfer", "tensor_to_image"]
@@ -119,6 +127,8 @@ class StyleTransfer:
         'bf16'/'bfloat16'.
       callback_chunk: iterations per host sync. Telemetry is emitted per
         iteration; wall-times within a chunk are interpolated.
+      mesh: this process's ``parallel.mesh.Mesh`` for a sharded run (its
+        device replaces ``device``), or None.
     """
 
     def __init__(
@@ -132,8 +142,11 @@ class StyleTransfer:
         w2_grad: str = "trace",
         compute_dtype="auto",
         callback_chunk: int = 50,
+        mesh=None,
     ):
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self._scale_mesh = None  # the mesh placed on the current canvas
+        self.device = torch.device(device if mesh is None else mesh.device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {device!r} requested but CUDA is not available")
         if pooling not in ("max", "average", "l2"):
@@ -168,6 +181,7 @@ class StyleTransfer:
         self._rng = np.random.RandomState(0)
         self._img_cache_key = None  # the EMAState the cached host image is of
         self._img_cache = None
+        self._whole_avg = None  # under a mesh: the EMA's whole image (_publish)
 
     # ------------------------------------------------------------------ API
 
@@ -183,7 +197,7 @@ class StyleTransfer:
         if self.average is None:
             return None
         if self._img_cache_key is not self.average:
-            img = ema_get(self.average)[0].permute(1, 2, 0)
+            img = self._avg_image()[0].permute(1, 2, 0)
             self._img_cache = np.clip(img.detach().cpu().numpy(), 0.0, 1.0)
             self._img_cache_key = self.average
         return self._img_cache
@@ -194,7 +208,7 @@ class StyleTransfer:
         saver thread can fetch it while the run goes on."""
         if self.average is None:
             return None
-        return torch.clamp(ema_get(self.average), 0.0, 1.0).permute(0, 2, 3, 1)
+        return torch.clamp(self._avg_image(), 0.0, 1.0).permute(0, 2, 3, 1)
 
     def get_image(self, image_type: str = "pil"):
         if self.average is None:
@@ -203,23 +217,58 @@ class StyleTransfer:
 
     def loss_terms(self):
         """Per-term weighted losses of the current iterate (diagnostic;
-        reference SumLoss(verbose=True) parity). Returns {name: float}."""
+        reference SumLoss(verbose=True) parity; under a mesh every rank
+        calls it). Returns {name: float}."""
         if self.image is None or self._last_cfg is None:
             return None
-        terms = build_loss_terms_fn(self._last_cfg)
+        terms = build_loss_terms_fn(self._last_cfg, self._scale_mesh)
         with fp32_math(self.device), torch.no_grad():
             out = terms(self.image, self._step_params(), self._last_consts)
         return {k: float(v) for k, v in out.items()}
 
     def canvas(self, content_size, scale, align=None):
         """(w, h) optimization canvas for ``scale``; ``align`` > 1 rounds
-        both dims to that multiple (None or 1: exact reference sizing)."""
+        both dims to that multiple, 1 keeps the exact reference sizing, and
+        None keeps it on one device and under a mesh snaps to
+        shard-divisible dims (``utils/scales.shard_align_size``, the JAX
+        engine's rule)."""
         cw, ch = size_to_fit(content_size, scale, scale_up=True)
         if align is not None and align > 1:
             return align_size((cw, ch), align)
+        if align is None and self.mesh is not None:
+            return shard_align_size((cw, ch), *self.mesh.grid)
         return (cw, ch)
 
     # ------------------------------------------------------------ internals
+
+    @property
+    def _is_rank0(self):
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _shard(self, x):
+        """This rank's slab of a whole-image tensor on the current canvas."""
+        return shard_image(x, self._scale_mesh)
+
+    def _whole(self, x):
+        """The whole image of a tensor held on the current canvas, on every
+        rank (a collective under a mesh). At a scale too small to shard every
+        rank holds the whole image already, and rank 0's is taken, so the
+        ranks leave the scale equal."""
+        if self.mesh is None:
+            return x
+        if self._scale_mesh is None:
+            return broadcast(x)
+        return gather_image(x, self._scale_mesh)
+
+    def _publish(self, ema):
+        """Under a mesh, gathers the averaged iterate's whole image for
+        ``get_image*`` (every rank, at each chunk's end: the callbacks run
+        on rank 0 only and cannot call a collective)."""
+        if self.mesh is not None:
+            self._whole_avg = self._whole(ema_get(ema))
+
+    def _avg_image(self):
+        return ema_get(self.average) if self.mesh is None else self._whole_avg
 
     def _step_params(self):
         """The params as the trunk consumes them: cast to ``compute_dtype``
@@ -273,7 +322,7 @@ class StyleTransfer:
         params = self._step_params()
         content_feats = extract_features(
             params, content, self.content_layers, pooling=self.pooling,
-            compute_dtype=cfg.compute_dtype)
+            compute_dtype=cfg.compute_dtype, mesh=self._scale_mesh)
         consts = {
             "content": {l: content_feats[l] for l in self.content_layers},
             "style": {},
@@ -304,6 +353,12 @@ class StyleTransfer:
                     mean, srm, cfg.w2_eps, cfg.sqrtm_iters)
             else:
                 consts["style"][layer] = blended[layer][0]
+            if self.mesh is not None:
+                # Every rank computes the targets from the same whole style
+                # image; rank 0's are taken, so the losses agree bit for bit.
+                t = consts["style"][layer]
+                consts["style"][layer] = (
+                    type(t)(*map(broadcast, t)) if isinstance(t, tuple) else broadcast(t))
         return consts
 
     # --------------------------------------------------------------- stylize
@@ -352,15 +407,17 @@ class StyleTransfer:
         return resume_state
 
     def _restored_opt(self, resume_state, optimizer):
-        """The optimizer state of a checkpoint, NCHW on the device."""
+        """The optimizer state of a checkpoint, NCHW on the device (this
+        rank's slab of it under a mesh)."""
         if optimizer == "adam":
-            return AdamState(mu=_from_nhwc(resume_state["adam_mu"], self.device),
-                             nu=_from_nhwc(resume_state["adam_nu"], self.device),
-                             count=int(resume_state["adam_count"]))
+            return AdamState(
+                mu=self._shard(_from_nhwc(resume_state["adam_mu"], self.device)),
+                nu=self._shard(_from_nhwc(resume_state["adam_nu"], self.device)),
+                count=int(resume_state["adam_count"]))
         fields = {}
         for name in LBFGSState._fields:
             arr = resume_state[f"lbfgs_{name}"]
-            fields[name] = (_from_nhwc(arr, self.device) if arr.ndim >= 4
+            fields[name] = (self._shard(_from_nhwc(arr, self.device)) if arr.ndim >= 4
                             else torch.from_numpy(np.array(arr)).to(self.device))
         return LBFGSState(**fields)
 
@@ -409,10 +466,10 @@ class StyleTransfer:
                 resume_state = self._load_resume(
                     checkpoint, optimizer, scales, content_image.size, align)
                 start_scale_idx = resume_state["scale_index"]
-                self.image = _from_nhwc(resume_state["image"], self.device)
+                whole = _from_nhwc(resume_state["image"], self.device)
             else:
                 cw, ch = self.canvas(content_image.size, scales[0], align)
-                self.image = self._init_image(
+                whole = self._init_image(
                     init, content_image, style_images, style_weights, (ch, cw))
 
             # Checkpoints are written on a background thread, every
@@ -427,8 +484,8 @@ class StyleTransfer:
                     "optimizers; no checkpoints will be written for this "
                     "lbfgs-zoom run (its optax state is not serialized)."
                 )
-            ckpt_writer = (AsyncCheckpointWriter()
-                           if checkpoint is not None and optimizer != "lbfgs-zoom"
+            checkpointing = checkpoint is not None and optimizer != "lbfgs-zoom"
+            ckpt_writer = (AsyncCheckpointWriter() if checkpointing and self._is_rank0
                            else None)
             iters_since_ckpt = 0
             try:
@@ -439,17 +496,22 @@ class StyleTransfer:
                     resuming_here = (resume_state is not None
                                      and scale_idx == start_scale_idx)
                     cw, ch = self.canvas(content_image.size, scale, align)
-                    content = _pil_to_nchw(content_image, (cw, ch), self.device)
+                    self._scale_mesh = (None if self.mesh is None
+                                        else self.mesh.on_canvas(ch, cw))
+                    content = self._shard(_pil_to_nchw(content_image, (cw, ch), self.device))
                     if resuming_here:
+                        self.image = self._shard(whole)
                         self.average = EMAState(
-                            value=_from_nhwc(resume_state["ema_value"], self.device),
+                            value=self._shard(
+                                _from_nhwc(resume_state["ema_value"], self.device)),
                             accum=torch.from_numpy(
                                 np.array(resume_state["ema_accum"])).to(self.device),
                         )
                     else:
-                        self.image = torch.clamp(
-                            _resize_image(self.image, (ch, cw)), 0.0, 1.0)
+                        self.image = self._shard(torch.clamp(
+                            _resize_image(whole, (ch, cw)), 0.0, 1.0))
                         self.average = ema_init(self.image, avg_decay)
+                    self._publish(self.average)
 
                     cfg = StepConfig(
                         content_layers=tuple(self.content_layers),
@@ -477,13 +539,14 @@ class StyleTransfer:
                         opt_state = self._restored_opt(resume_state, optimizer)
                     elif optimizer == "adam":
                         opt_state = (adam_init(self.image) if opt_state is None
-                                     else _scale_adam(opt_state, (ch, cw)))
+                                     else AdamState(*map(self._shard, _scale_adam(
+                                         opt_state, (ch, cw))[:2]), opt_state.count))
                     elif optimizer == "lbfgs":
                         # A fresh state at every scale, as the JAX engine.
                         opt_state = lbfgs_init(self.image)
                     else:
                         opt_state = zoom_lbfgs_init(self.image)
-                    runner = _RUNNERS[optimizer](cfg)
+                    runner = _RUNNERS[optimizer](cfg, self._scale_mesh)
                     state = LoopState(image=self.image, opt=opt_state, ema=self.average)
 
                     reset_peak_device_ram(self.device)
@@ -495,20 +558,21 @@ class StyleTransfer:
                         state, losses_dev = runner(self._step_params(), consts, state, n)
                         losses = losses_dev.cpu().numpy().astype(np.float64)  # one sync
                         self.image, self.average = state.image, state.ema
+                        self._publish(state.ema)
                         done += n
                         t_now = time.time()
                         # The snapshot goes to the writer BEFORE the
                         # callbacks, so an interrupt raised by a callback
                         # still leaves a resumable checkpoint (the finally
                         # below flushes the write in flight).
-                        if ckpt_writer is not None:
+                        if checkpointing:
                             iters_since_ckpt += n
                             if iters_since_ckpt >= checkpoint_every or done >= actual_its:
                                 self._submit_checkpoint(
                                     ckpt_writer, checkpoint, state, optimizer,
                                     scale_idx, done, (cw, ch, scale))
                                 iters_since_ckpt = 0
-                        if callback is not None:
+                        if callback is not None and self._is_rank0:
                             ram = peak_device_ram(self.device)
                             for k in range(n):
                                 callback(STIterate(
@@ -519,11 +583,16 @@ class StyleTransfer:
                                 ))
                         t_prev = t_now
 
-                    opt_state = state.opt
                     # Each new scale starts from the previous scale's averaged
-                    # iterate (ref :495-497).
+                    # iterate (ref :495-497); Adam's moments are carried over
+                    # whole, to be resized.
+                    opt_state = state.opt
+                    if optimizer == "adam":
+                        opt_state = AdamState(self._whole(opt_state.mu),
+                                              self._whole(opt_state.nu), opt_state.count)
                     self.image = torch.clamp(ema_get(state.ema), 0.0, 1.0)
                     self.average = state.ema
+                    whole = self._whole(self.image)
             finally:
                 if ckpt_writer is not None:
                     try:
@@ -535,23 +604,30 @@ class StyleTransfer:
     def _submit_checkpoint(self, writer, path, state, optimizer, scale_idx, done,
                            geometry):
         """Hands the chunk's state to the writer thread in the checkpoint's
-        channels-last layout (views; the writer fetches and copies)."""
+        channels-last layout (views; the writer fetches and copies). Under a
+        mesh every rank gathers the whole state and rank 0, the only one
+        with a writer, submits it."""
+        whole = self._whole
+        if optimizer == "adam":
+            opt = {"adam": AdamState(mu=_to_nhwc(whole(state.opt.mu)),
+                                     nu=_to_nhwc(whole(state.opt.nu)),
+                                     count=state.opt.count)}
+        else:
+            opt = {"lbfgs": LBFGSState(*(_to_nhwc(whole(f)) if f.ndim >= 4 else f
+                                         for f in state.opt))}
+        image, ema_value = whole(state.image), whole(state.ema.value)
+        if writer is None:
+            return
         if writer.error is not None:
             print(f"Warning: checkpoint write failed: {writer.error}")
             writer.error = None
         cw, ch, scale = geometry
-        if optimizer == "adam":
-            opt = {"adam": AdamState(mu=_to_nhwc(state.opt.mu),
-                                     nu=_to_nhwc(state.opt.nu), count=state.opt.count)}
-        else:
-            opt = {"lbfgs": LBFGSState(*(_to_nhwc(f) if f.ndim >= 4 else f
-                                         for f in state.opt))}
         rng = np.random.RandomState()
         rng.set_state(self._rng.get_state())  # a copy: the live one may advance
         writer.submit(
             path,
-            image=_to_nhwc(state.image),
-            ema=EMAState(value=_to_nhwc(state.ema.value), accum=state.ema.accum),
+            image=_to_nhwc(image),
+            ema=EMAState(value=_to_nhwc(ema_value), accum=state.ema.accum),
             scale_index=scale_idx,
             done_iters=done,
             meta={"w": cw, "h": ch, "scale": scale, "transposed": False},

@@ -13,7 +13,10 @@ upcast every tap to FP32.
 * conv1_1 replicate-padded, the other convs zero-padded;
 * max/average/L2 pooling with activation rescale {1, 2, 0.78};
 * the raw input rides along as ``feats[INPUT]`` (key -1) for the TV loss;
-* minimum-input-size guard of 2^(#pools <= last tapped layer).
+* minimum-input-size guard of 2^(#pools <= last tapped layer);
+* with a ``mesh`` (``parallel/mesh.py``, placed on the canvas) the input is
+  this rank's slab, and each conv pads it through ``halo_pad``: the
+  neighbours' rows and columns inside, the pad above at the global border.
 
 Tensors here are NCHW; the JAX package's are NHWC, so tests comparing the
 two transpose at the boundary.
@@ -27,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.pooling import POOLING_SCALES, pool2x2, replicate_pad2d
+from ..parallel.mesh import halo_pad
 from .weights import CONV_CHANNELS, CONV_INDICES, POOL_INDICES
 
 __all__ = [
@@ -112,7 +116,7 @@ def cast_params(params, dtype):
 
 
 def extract_features(params, image, layers: Sequence[int], pooling: str = "max",
-                     compute_dtype=None):
+                     compute_dtype=None, mesh=None):
     """Run the VGG-19 trunk up to the last requested layer.
 
     Args:
@@ -123,6 +127,8 @@ def extract_features(params, image, layers: Sequence[int], pooling: str = "max",
       pooling: 'max' | 'average' | 'l2'.
       compute_dtype: dtype of the trunk (``torch.bfloat16``), or None for
         the image's own (FP32).
+      mesh: the mesh placed on the whole image's canvas when ``image`` is
+        this rank's slab of it, else None.
 
     Returns:
       dict mapping ``INPUT`` (-1) -> the raw image and each tapped index ->
@@ -130,7 +136,7 @@ def extract_features(params, image, layers: Sequence[int], pooling: str = "max",
     """
     layers = sorted(set(int(l) for l in layers))
     last = layers[-1]
-    h, w = image.shape[2:4]
+    h, w = image.shape[2:4] if mesh is None else mesh.canvas
     mins = min_input_size(layers)
     if min(h, w) < mins:
         raise ValueError(f"Input is {h}x{w} but must be at least {mins}x{mins}")
@@ -145,7 +151,9 @@ def extract_features(params, image, layers: Sequence[int], pooling: str = "max",
             # A no-op when the params are already in the trunk's dtype.
             kernel = params[f"conv{i}_kernel"].to(x.dtype)
             bias = params[f"conv{i}_bias"].to(x.dtype)
-            if i == 0:  # conv1_1: replicate padding (reference :38-39)
+            if mesh is not None:
+                x = F.conv2d(halo_pad(x, mesh, replicate=i == 0), kernel, bias)
+            elif i == 0:  # conv1_1: replicate padding (reference :38-39)
                 x = F.conv2d(replicate_pad2d(x, 1), kernel, bias)
             else:
                 x = F.conv2d(x, kernel, bias, padding=1)

@@ -17,7 +17,10 @@ Port of ``style_transfer_tpu/ops/losses.py``. Feature maps are NCHW here
 
 Every tap is upcast to FP32 before its moments, Gram and content MSE (the
 JAX package's ``_f32``), so a bf16 trunk leaves the objective in FP32; TV
-takes the FP32 image. Every matmul and einsum here is full FP32: on CUDA the callers run with
+takes the FP32 image. With a ``mesh`` (``parallel/mesh.py``) a function
+takes this rank's slab, sums its statistics over the ranks and divides by
+the global counts, so every rank returns the whole image's value. Every
+matmul and einsum here is full FP32: on CUDA the callers run with
 ``allow_tf32`` off, because the covariance feeds a Newton-Schulz square root
 that diverges under single-pass low-precision products. The W2 square root
 goes through the dispatching ``ops/cuda/ns_sqrtm.py::sqrtm_ns_lyap``: on a
@@ -29,6 +32,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..parallel.mesh import all_reduce_sum, halo_pad
 from .cuda.ns_sqrtm import sqrtm_ns_lyap
 from .pooling import replicate_pad2d
 from .sqrtm import sqrtm_eig
@@ -46,6 +50,7 @@ __all__ = [
     "w2_loss",
     "w2_losses_batched",
     "tv_loss",
+    "global_numel",
 ]
 
 
@@ -54,21 +59,34 @@ def _f32(x):
     return x.float()
 
 
-def scaled_mse(x, target, eps: float = 1e-8):
-    """MSE scaled such that its gradient L1 norm is approximately 1."""
+def global_numel(x, mesh=None) -> int:
+    """Elements of the whole NCHW activation whose slab is ``x``."""
+    if mesh is None:
+        return x.numel()
+    h, w = mesh.global_hw(x)
+    return x.shape[0] * x.shape[1] * h * w
+
+
+def scaled_mse(x, target, eps: float = 1e-8, mesh=None):
+    """MSE scaled such that its gradient L1 norm is approximately 1 (both
+    sums taken over the ranks before the division)."""
     diff = _f32(x) - _f32(target)
-    return torch.sum(diff * diff) / (torch.sum(torch.abs(diff)) + eps)
+    sq, ab = all_reduce_sum(mesh, torch.sum(diff * diff), torch.sum(torch.abs(diff)))
+    return sq / (ab + eps)
 
 
-def content_mse(x, target):
+def content_mse(x, target, mesh=None):
     """Plain MSE content loss (the one the reference engine uses)."""
     diff = _f32(x) - _f32(target)
-    return torch.mean(diff * diff)
+    if mesh is None:
+        return torch.mean(diff * diff)
+    (sq,) = all_reduce_sum(mesh, torch.sum(diff * diff))
+    return sq / global_numel(diff, mesh)
 
 
-def content_scaled(x, target, eps: float = 1e-8):
+def content_scaled(x, target, eps: float = 1e-8, mesh=None):
     """ScaledMSE content loss (reference ContentLoss)."""
-    return scaled_mse(x, target, eps)
+    return scaled_mse(x, target, eps, mesh)
 
 
 def _srm_outer(feats):
@@ -77,15 +95,18 @@ def _srm_outer(feats):
     return f @ f.transpose(1, 2)
 
 
-def gram_matrix(feats):
+def gram_matrix(feats, mesh=None):
     """Gram matrix of NCHW features normalized by pixel count (the
     reference's ``mat @ mat.T / (H*W)``). Returns (N, C, C)."""
-    h, w = feats.shape[2:4]
-    return _srm_outer(feats) / (h * w)
+    if mesh is None:
+        h, w = feats.shape[2:4]
+        return _srm_outer(feats) / (h * w)
+    return w2_moments(feats, mesh)[1]
 
 
-def gram_loss(feats, target_gram, eps: float = 1e-8):
-    return scaled_mse(gram_matrix(feats), target_gram, eps)
+def gram_loss(feats, target_gram, eps: float = 1e-8, mesh=None):
+    # The Gram matrix is the same on every rank: its MSE is not sharded.
+    return scaled_mse(gram_matrix(feats, mesh), target_gram, eps)
 
 
 class W2Target(NamedTuple):
@@ -96,13 +117,19 @@ class W2Target(NamedTuple):
     cov_sqrt: torch.Tensor  # (N, C, C)
 
 
-def w2_moments(feats):
-    """Mean (N, C) and second raw moment (N, C, C) of NCHW features."""
-    h, w = feats.shape[2:4]
+def w2_moments(feats, mesh=None):
+    """Mean (N, C) and second raw moment (N, C, C) of NCHW features; with a
+    mesh, Σx and Σxxᵀ summed over the ranks, then divided by the global
+    pixel count."""
     feats = _f32(feats)
-    mean = torch.mean(feats, dim=(2, 3))
-    srm = _srm_outer(feats) / (h * w)
-    return mean, srm
+    if mesh is None:
+        h, w = feats.shape[2:4]
+        mean = torch.mean(feats, dim=(2, 3))
+        srm = _srm_outer(feats) / (h * w)
+        return mean, srm
+    h, w = mesh.global_hw(feats)
+    s1, s2 = all_reduce_sum(mesh, torch.sum(feats, dim=(2, 3)), _srm_outer(feats))
+    return s1 / (h * w), s2 / (h * w)
 
 
 def _eye_like(x):
@@ -131,10 +158,11 @@ def w2_target(mean, srm, eps: float = 1e-4, sqrtm_iters: int = 12) -> W2Target:
     return W2Target(mean=mean, cov=cov, cov_sqrt=sqrtm_eig(cov))
 
 
-def w2_loss(feats, target: W2Target, eps: float = 1e-4, sqrtm_iters: int = 12):
+def w2_loss(feats, target: W2Target, eps: float = 1e-4, sqrtm_iters: int = 12,
+            mesh=None):
     """W2(N(m1,C1), N(m2,C2))^2 = |m1-m2|^2 + tr(C1 + C2 - 2 (C2^½ C1 C2^½)^½),
     with the reference's mean-instead-of-sum reductions."""
-    mean, srm = w2_moments(feats)
+    mean, srm = w2_moments(feats, mesh)
     cov = moments_to_cov(mean, srm, eps)
     mean_diff = torch.mean((mean - target.mean) ** 2)
     inner = target.cov_sqrt @ (cov @ target.cov_sqrt)
@@ -164,15 +192,45 @@ def w2_losses_batched(means, covs, target: W2Target, sqrtm_iters: int = 12,
     return mean_diff + cov_diff
 
 
-def tv_loss(image):
+def tv_loss(image, mesh=None):
     """L2 total variation, nine-point stencil, NCHW input.
 
     Axis-aligned neighbor diffs weighted 1/3, diagonal diffs 1/12, total x2.
+    The axis terms are means over the H x W pixels; the diagonal ones over
+    the (H+1) x (W+1) neighbour pairs of the padded image.
     """
+    if mesh is not None:
+        return _tv_loss_sharded(image, mesh)
     x = replicate_pad2d(image, 1)
     c = x[:, :, 1:-1, 1:-1]
     d1 = torch.mean((x[:, :, 1:-1, 2:] - c) ** 2) / 3.0
     d2 = torch.mean((x[:, :, 2:, 1:-1] - c) ** 2) / 3.0
     d3 = torch.mean((x[:, :, 1:, 1:] - x[:, :, :-1, :-1]) ** 2) / 12.0
     d4 = torch.mean((x[:, :, 1:, :-1] - x[:, :, :-1, 1:]) ** 2) / 12.0
+    return 2.0 * (d1 + d2 + d3 + d4)
+
+
+def _tv_loss_sharded(image, mesh):
+    """``tv_loss`` of the whole image from this rank's slab. The slab's
+    halo-padded window holds every neighbour pair of its pixels; each
+    diagonal pair (i, j) of the padded image is counted by the rank that
+    holds pixel (i, j), and the pairs of the padded image's last row and
+    column by the last rank of each row and column of the grid."""
+    x = halo_pad(image, mesh, replicate=True)
+    n, ch, h, w = image.shape
+    c = x[:, :, 1:-1, 1:-1]
+    r, col = mesh.coord
+    dh = h + (r == mesh.grid[0] - 1)
+    dw = w + (col == mesh.grid[1] - 1)
+    sums = all_reduce_sum(
+        mesh,
+        torch.sum((x[:, :, 1:-1, 2:] - c) ** 2),
+        torch.sum((x[:, :, 2:, 1:-1] - c) ** 2),
+        torch.sum((x[:, :, 1:dh + 1, 1:dw + 1] - x[:, :, :dh, :dw]) ** 2),
+        torch.sum((x[:, :, 1:dh + 1, :dw] - x[:, :, :dh, 1:dw + 1]) ** 2),
+    )
+    gh, gw = mesh.canvas
+    pixels, pairs = n * ch * gh * gw, n * ch * (gh + 1) * (gw + 1)
+    d1, d2 = sums[0] / pixels / 3.0, sums[1] / pixels / 3.0
+    d3, d4 = sums[2] / pairs / 12.0, sums[3] / pairs / 12.0
     return 2.0 * (d1 + d2 + d3 + d4)

@@ -1,0 +1,113 @@
+"""Rank programs that hold the sharded step against the one-device step.
+
+:func:`run` builds a problem from a numpy seed (an image, a content image and
+a style image, and the deterministic ``random_params(0)`` weights),
+evaluates the loss and its gradient at the image, then takes ``steps``
+iterations of the optimizer, either sharded over a mesh or on one device.
+It returns what it computed as whole-image arrays, so the two runs can be
+compared; :func:`run_ranks` is the same as a rank program for
+``launch.launch``. They live in the package, not in the tests, so that the
+processes the launcher starts import torch only.
+
+A spec is a dict: ``hw`` (the canvas), and optionally ``seed`` (1),
+``cfg`` (``StepConfig`` keyword arguments), ``steps`` (0), ``optimizer``
+('adam' or 'lbfgs') and ``init`` ('gray': the engine's gray init, drawn from
+the image's numbers).
+"""
+
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ..models.vgg import extract_features
+from ..models.weights import params_from_jax, random_params
+from ..ops import losses as L
+from ..step import (LoopState, StepConfig, adam_init, build_loss_fn,
+                    build_loss_terms_fn, lbfgs_init, make_adam_runner, make_lbfgs_runner)
+from ..utils.ema import ema_init
+from .mesh import gather_image, shard_image
+
+__all__ = ["problem", "run", "run_ranks", "fail_on_rank"]
+
+_PARAMS = {}  # device -> the weights, made once per process (about 1 s)
+
+
+def _params(device):
+    if device not in _PARAMS:
+        _PARAMS[device] = params_from_jax(random_params(0), device)
+    return _PARAMS[device]
+
+
+def problem(spec):
+    """(image, content, style) as (1, H, W, 3) float32 arrays from the
+    spec's seed (style 64x64)."""
+    rng = np.random.RandomState(spec.get("seed", 1))
+    h, w = spec["hw"]
+    image = rng.rand(1, h, w, 3).astype(np.float32)
+    content = rng.rand(1, h, w, 3).astype(np.float32)
+    style = rng.rand(1, 64, 64, 3).astype(np.float32)
+    if spec.get("init") == "gray":
+        image = (image / np.float32(255.0) + np.float32(0.5)).astype(np.float32)
+    return image, content, style
+
+
+def run(spec, mesh=None, device="cpu"):
+    """The spec's evaluation and iterations, on this rank's slab when
+    ``mesh`` is given (on ``device`` otherwise). Returns float32 arrays:
+    ``loss`` (at the image), ``terms`` (``build_loss_terms_fn``'s weighted
+    terms in name order), ``grad`` (whole, NCHW) and, with steps,
+    ``losses`` and the final ``image`` (whole, NCHW)."""
+    device = torch.device(device) if mesh is None else mesh.device
+    cfg = StepConfig(**spec.get("cfg", {}))
+    params = _params(device)
+    image, content, style = (
+        torch.from_numpy(a).permute(0, 3, 1, 2).contiguous().to(device)
+        for a in problem(spec))
+    m = None if mesh is None else mesh.on_canvas(*spec["hw"])
+    x0 = shard_image(image, m)
+    with torch.no_grad():
+        cf = extract_features(params, shard_image(content, m), cfg.content_layers,
+                              pooling=cfg.pooling, mesh=m)
+        sf = extract_features(params, style, cfg.style_layers, pooling=cfg.pooling)
+    style_consts = {}
+    for layer in cfg.style_layers:
+        mean, srm = L.w2_moments(sf[layer])
+        style_consts[layer] = (L.w2_target(mean, srm, cfg.w2_eps)
+                               if cfg.style_loss == "w2" else srm)
+    consts = {"content": {l: cf[l] for l in cfg.content_layers}, "style": style_consts}
+
+    x = x0.clone().requires_grad_(True)
+    loss = build_loss_fn(cfg, m)(x, params, consts)
+    (g,) = torch.autograd.grad(loss, x)
+    with torch.no_grad():
+        terms = build_loss_terms_fn(cfg, m)(x0, params, consts)
+    out = {"loss": loss.detach(), "grad": gather_image(g, m),
+           "terms": torch.stack([terms[k] for k in sorted(terms)])}
+    steps = spec.get("steps", 0)
+    if steps:
+        adam = spec.get("optimizer", "adam") == "adam"
+        runner = (make_adam_runner if adam else make_lbfgs_runner)(cfg, m)
+        opt = adam_init(x0) if adam else lbfgs_init(x0)
+        state = LoopState(image=x0, opt=opt, ema=ema_init(x0, cfg.avg_decay))
+        state, losses = runner(params, consts, state, steps)
+        out["losses"] = losses
+        out["image"] = gather_image(state.image, m)
+    return {k: v.detach().cpu().numpy() for k, v in out.items()}
+
+
+def run_ranks(mesh, specs, out_dir):
+    """Rank program: :func:`run` of each spec, saved by every rank as
+    ``spec{i}_rank{r}.npz`` in ``out_dir``."""
+    for i, spec in enumerate(specs):
+        np.savez(Path(out_dir) / f"spec{i}_rank{mesh.rank}.npz", **run(spec, mesh))
+
+
+def fail_on_rank(mesh, rank):
+    """Rank program: rank ``rank`` raises while the others wait for it in
+    a collective."""
+    import torch.distributed as dist
+
+    if mesh.rank == rank:
+        raise RuntimeError(f"rank {rank} failed on purpose")
+    dist.barrier()

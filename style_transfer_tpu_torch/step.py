@@ -26,6 +26,7 @@ import torch
 from .models.vgg import INPUT, extract_features
 from .ops import losses as L
 from .ops.cuda.ns_sqrtm import sqrtm_ns_lyap, trace_sqrtm_ns
+from .parallel.mesh import all_reduce_
 from .utils.ema import EMAState, ema_update
 from .zoom_lbfgs import ZoomLBFGSState, zoom_lbfgs_init, zoom_lbfgs_update
 
@@ -100,11 +101,13 @@ class LoopState(NamedTuple):
     ema: EMAState
 
 
-def build_loss_fn(cfg: StepConfig):
+def build_loss_fn(cfg: StepConfig, mesh=None):
     """Returns ``loss(image, params, consts) -> scalar tensor``.
 
     ``consts`` is ``{'content': {layer: feats}, 'style': {layer: target}}``
-    where a style target is a ``W2Target`` (w2 mode) or a Gram matrix.
+    where a style target is a ``W2Target`` (w2 mode) or a Gram matrix. With
+    a ``mesh``, ``image`` and the content targets are this rank's slabs, the
+    style targets the same on every rank, and the loss is the whole image's.
     """
 
     def w2_total(moments, consts):
@@ -151,44 +154,47 @@ def build_loss_fn(cfg: StepConfig):
 
     def loss_fn(image, params, consts):
         feats = extract_features(params, image, cfg.all_layers, pooling=cfg.pooling,
-                                 compute_dtype=cfg.compute_dtype)
-        moments = {l: L.w2_moments(feats[l]) for l in cfg.style_layers}
+                                 compute_dtype=cfg.compute_dtype, mesh=mesh)
+        moments = {l: L.w2_moments(feats[l], mesh) for l in cfg.style_layers}
         content = 0.0
         for layer, w in zip(cfg.content_layers, cfg.content_weights):
             diff = feats[layer].float() - consts["content"][layer].float()
-            sse = torch.sum(diff * diff)
             if cfg.content_loss == "mse":
-                content = content + w * sse / diff.numel()
+                (sse,) = L.all_reduce_sum(mesh, torch.sum(diff * diff))
+                content = content + w * sse / L.global_numel(diff, mesh)
             else:  # ScaledMSE
-                content = content + w * sse / (torch.sum(torch.abs(diff)) + 1e-8)
-        tv = L.tv_loss(feats[INPUT])
+                sse, sabs = L.all_reduce_sum(mesh, torch.sum(diff * diff),
+                                             torch.sum(torch.abs(diff)))
+                content = content + w * sse / (sabs + 1e-8)
+        tv = L.tv_loss(feats[INPUT], mesh)
         return content + style_total(moments, consts) + cfg.tv_weight * tv
 
     return loss_fn
 
 
-def build_loss_terms_fn(cfg: StepConfig):
+def build_loss_terms_fn(cfg: StepConfig, mesh=None):
     """Per-term diagnostic: ``terms(image, params, consts) -> {name: scalar}``
     with each weighted objective component separately (the reference's
-    ``SumLoss(verbose=True)``). Plain PyTorch, off the optimization path."""
+    ``SumLoss(verbose=True)``). Plain PyTorch, off the optimization path;
+    sharded as :func:`build_loss_fn` with a ``mesh``."""
 
     def terms(image, params, consts):
         feats = extract_features(params, image, cfg.all_layers, pooling=cfg.pooling,
-                                 compute_dtype=cfg.compute_dtype)
+                                 compute_dtype=cfg.compute_dtype, mesh=mesh)
         out = {}
         content_fn = L.content_mse if cfg.content_loss == "mse" else L.content_scaled
         for layer, w in zip(cfg.content_layers, cfg.content_weights):
             out[f"content_{layer}"] = w * content_fn(
-                feats[layer], consts["content"][layer])
+                feats[layer], consts["content"][layer], mesh=mesh)
         for layer, w in zip(cfg.style_layers, cfg.style_layer_weights):
             if cfg.style_loss == "w2":
                 out[f"style_w2_{layer}"] = w * L.w2_loss(
                     feats[layer], consts["style"][layer], cfg.w2_eps,
-                    cfg.sqrtm_iters)
+                    cfg.sqrtm_iters, mesh=mesh)
             else:
                 out[f"style_gram_{layer}"] = w * L.gram_loss(
-                    feats[layer], consts["style"][layer])
-        out["tv"] = cfg.tv_weight * L.tv_loss(feats[INPUT])
+                    feats[layer], consts["style"][layer], mesh=mesh)
+        out["tv"] = cfg.tv_weight * L.tv_loss(feats[INPUT], mesh)
         return out
 
     return terms
@@ -212,14 +218,14 @@ def _adam_apply(cfg: StepConfig, opt: AdamState, g):
     return update, AdamState(mu=mu, nu=nu, count=count)
 
 
-def _make_runner(cfg: StepConfig, apply):
+def _make_runner(cfg: StepConfig, apply, mesh=None):
     """Returns ``run(params, consts, state, n_steps) -> (state, losses)``:
     ``n_steps`` iterations of loss and gradient (image only) -> ``apply(opt,
     image, g, loss, value_and_grad) -> (image, opt)`` -> EMA, with the
     per-iteration losses in an (n_steps,) tensor on the image's device.
     ``value_and_grad(x)`` is the loss and its gradient at another image,
     each call one autograd graph, freed before it returns."""
-    loss_fn = build_loss_fn(cfg)
+    loss_fn = build_loss_fn(cfg, mesh)
 
     def run(params, consts, state: LoopState, n_steps: int):
         def value_and_grad(image):
@@ -240,15 +246,15 @@ def _make_runner(cfg: StepConfig, apply):
     return run
 
 
-def make_adam_runner(cfg: StepConfig):
+def make_adam_runner(cfg: StepConfig, mesh=None):
     """The Adam runner (see :func:`_make_runner`): gradient -> Adam -> clamp
-    to [0, 1] -> EMA."""
+    to [0, 1] -> EMA, all elementwise (each rank updates its own slab)."""
 
     def apply(opt, image, g, *_):
         update, opt = _adam_apply(cfg, opt, g)
         return torch.clamp(image - update, 0.0, 1.0), opt
 
-    return _make_runner(cfg, apply)
+    return _make_runner(cfg, apply, mesh)
 
 
 class LBFGSState(NamedTuple):
@@ -293,11 +299,12 @@ def lbfgs_init(image, memory_size: int = _LBFGS_MEMORY) -> LBFGSState:
     )
 
 
-def _vdot(a, b):
-    return torch.dot(a.reshape(-1), b.reshape(-1))
+def _vdot(a, b, mesh=None):
+    """Inner product of two images (of their slabs, summed over the ranks)."""
+    return all_reduce_(torch.dot(a.reshape(-1), b.reshape(-1)), mesh)
 
 
-def _lbfgs_direction(state: LBFGSState, g, lr: float):
+def _lbfgs_direction(state: LBFGSState, g, lr: float, mesh=None):
     """One torch-semantics L-BFGS direction/step-length computation.
 
     Matches ``torch.optim.LBFGS`` with ``max_iter=1, history_size=m,
@@ -316,7 +323,7 @@ def _lbfgs_direction(state: LBFGSState, g, lr: float):
     # --- history update (skipped on the first iteration) -----------------
     y = g - state.prev_grad
     s = state.d * state.t
-    ys = _vdot(y, s)
+    ys = _vdot(y, s, mesh)
     insert = torch.logical_and(torch.logical_not(first), ys > _LBFGS_YS_MIN)
     slot = (state.head + state.num_old) % m
     at_slot = torch.logical_and(torch.arange(m, device=dev) == slot, insert)
@@ -328,7 +335,7 @@ def _lbfgs_direction(state: LBFGSState, g, lr: float):
                           state.num_old)
     head = torch.where(torch.logical_and(insert, full), (state.head + 1) % m,
                        state.head)
-    h_diag = torch.where(insert, ys / torch.clamp(_vdot(y, y), min=1e-30),
+    h_diag = torch.where(insert, ys / torch.clamp(_vdot(y, y, mesh), min=1e-30),
                          state.h_diag)
 
     # --- two-loop recursion, over the history in logical order -----------
@@ -340,15 +347,16 @@ def _lbfgs_direction(state: LBFGSState, g, lr: float):
     q = -g
     al = [None] * m
     for j in reversed(range(m)):  # newest -> oldest
-        al[j] = active[j] * rho_l[j] * _vdot(s_l[j], q)
+        al[j] = active[j] * rho_l[j] * _vdot(s_l[j], q, mesh)
         q = q - al[j] * y_l[j]
     r = q * h_diag
     for j in range(m):
-        be = active[j] * rho_l[j] * _vdot(y_l[j], r)
+        be = active[j] * rho_l[j] * _vdot(y_l[j], r, mesh)
         r = r + active[j] * (al[j] - be) * s_l[j]
 
     d = torch.where(first, -g, r)
-    t0 = torch.clamp(1.0 / torch.clamp(torch.sum(torch.abs(g)), min=1e-30), max=1.0)
+    g_l1 = all_reduce_(torch.sum(torch.abs(g)), mesh)
+    t0 = torch.clamp(1.0 / torch.clamp(g_l1, min=1e-30), max=1.0)
     t = torch.where(first, t0 * lr, torch.full_like(t0, lr))
     new_state = LBFGSState(
         s_hist=s_hist, y_hist=y_hist, rho=rho, num_old=num_old, head=head,
@@ -357,11 +365,11 @@ def _lbfgs_direction(state: LBFGSState, g, lr: float):
     return d, t, new_state
 
 
-def lbfgs_step(state: LBFGSState, image, g, lr: float):
+def lbfgs_step(state: LBFGSState, image, g, lr: float, mesh=None):
     """Returns (new_image, new_state) for one reference-flavor iteration."""
-    opt_cond = torch.max(torch.abs(g)) <= _LBFGS_TOL_GRAD
-    d, t, new_state = _lbfgs_direction(state, g, lr)
-    gtd = _vdot(g, d)
+    opt_cond = all_reduce_(torch.max(torch.abs(g)), mesh, "max") <= _LBFGS_TOL_GRAD
+    d, t, new_state = _lbfgs_direction(state, g, lr, mesh)
+    gtd = _vdot(g, d, mesh)
     take = torch.logical_and(torch.logical_not(opt_cond), gtd <= -_LBFGS_TOL_CHANGE)
     new_image = image + take.to(image.dtype) * t * d
     # If converged (opt_cond), torch returns before touching any state.
@@ -370,7 +378,7 @@ def lbfgs_step(state: LBFGSState, image, g, lr: float):
     return new_image, new_state
 
 
-def make_lbfgs_runner(cfg: StepConfig):
+def make_lbfgs_runner(cfg: StepConfig, mesh=None):
     """The reference-flavour L-BFGS runner (see :func:`_make_runner`):
     gradient -> L-BFGS step -> EMA, with ``state.opt`` an :class:`LBFGSState`.
 
@@ -382,10 +390,12 @@ def make_lbfgs_runner(cfg: StepConfig):
     Python lists, whose host-side decisions would sync the stream every
     iteration.
     """
-    return _make_runner(cfg, lambda opt, image, g, *_: lbfgs_step(opt, image, g, lr=1.0))
+    sharded = {} if mesh is None else {"mesh": mesh}  # the one-device call as before
+    return _make_runner(
+        cfg, lambda opt, image, g, *_: lbfgs_step(opt, image, g, lr=1.0, **sharded), mesh)
 
 
-def make_lbfgs_zoom_runner(cfg: StepConfig):
+def make_lbfgs_zoom_runner(cfg: StepConfig, mesh=None):
     """The ``lbfgs-zoom`` runner (see :func:`_make_runner`): loss and
     gradient -> ``optax.lbfgs(memory_size=10)`` with its zoom line search
     (``zoom_lbfgs.py``), whose trials evaluate the same loss -> EMA, with
@@ -393,6 +403,7 @@ def make_lbfgs_zoom_runner(cfg: StepConfig):
     ``cfg.step_size`` ignored, as the JAX runner. As there, the loss and
     gradient at each iterate are computed anew, not taken from the line
     search's last trial, so the evaluations equal the reference's."""
+    sharded = {} if mesh is None else {"mesh": mesh}  # the one-device call as before
     return _make_runner(
         cfg, lambda opt, image, g, loss, value_and_grad: zoom_lbfgs_update(
-            opt, image, loss, g, value_and_grad))
+            opt, image, loss, g, value_and_grad, **sharded), mesh)

@@ -5,7 +5,8 @@ Port of ``style_transfer_tpu/utils/scales.py`` (reference
 differ by sqrt(2), e.g. ``gen_scales(128, 512) == [128, 181, 256, 362, 512]``.
 """
 
-__all__ = ["gen_scales", "size_to_fit", "get_safe_scale", "align_size"]
+__all__ = ["gen_scales", "size_to_fit", "get_safe_scale", "align_size",
+           "shard_align_size"]
 
 
 def gen_scales(start: int, end: int):
@@ -41,6 +42,23 @@ def align_size(size, align: int):
     w, h = size
     return (max(align, round(w / align) * align),
             max(align, round(h / align) * align))
+
+
+def shard_align_size(size, mesh_rows: int, mesh_cols: int, tol: float = 0.015):
+    """Snap (w, h) to shard-divisible dims for a rows x cols spatial mesh —
+    H to a multiple of 16*rows, W to 16*cols — but only when the change
+    stays within ``tol`` per axis (so small pyramid scales keep their exact
+    aspect). Divisible dims give every rank an equal slab; elsewhere the
+    last slab of a row or column of the grid takes the remainder
+    (``parallel/mesh.slab_bounds``)."""
+    w, h = size
+    aw = 16 * mesh_cols
+    ah = 16 * mesh_rows
+    w2 = max(aw, round(w / aw) * aw)
+    h2 = max(ah, round(h / ah) * ah)
+    if abs(w2 - w) > tol * w or abs(h2 - h) > tol * h:
+        return (w, h)
+    return (w2, h2)
 
 
 def get_safe_scale(w: int, h: int, dim: int) -> int:

@@ -15,13 +15,17 @@ a data-dependent loop: each of its steps reads its trial value and slope to
 the host once, and its state machine runs on the host in float32
 (``numpy.float32``), as optax keeps its scalars, so that every accept or
 reject decision is the reference's. ``value_and_grad_fn`` builds and frees
-one autograd graph per trial.
+one autograd graph per trial. With a ``mesh`` (``parallel/mesh.py``) the
+vectors are this rank's slabs and every inner product is summed over the
+ranks, so every rank reads the same values and takes the same steps.
 """
 
 from typing import Callable, NamedTuple, Tuple
 
 import numpy as np
 import torch
+
+from .parallel.mesh import all_reduce_
 
 __all__ = [
     "MAX_LINESEARCH_STEPS",
@@ -82,11 +86,12 @@ def zoom_lbfgs_init(params: torch.Tensor, memory_size: int = MEMORY_SIZE) -> Zoo
     )
 
 
-def _vdot(a, b):
-    return torch.dot(a.reshape(-1), b.reshape(-1))
+def _vdot(a, b, mesh=None):
+    return all_reduce_(torch.dot(a.reshape(-1), b.reshape(-1)), mesh)
 
 
-def lbfgs_direction(state: ZoomLBFGSState, grad: torch.Tensor, params: torch.Tensor):
+def lbfgs_direction(state: ZoomLBFGSState, grad: torch.Tensor, params: torch.Tensor,
+                    mesh=None):
     """``scale_by_lbfgs`` then ``scale(-1)``: the descent direction -P·g and
     the new state. The memory is written in place (nothing else holds it);
     every decision on device values is a ``torch.where``."""
@@ -97,7 +102,7 @@ def lbfgs_direction(state: ZoomLBFGSState, grad: torch.Tensor, params: torch.Ten
     if state.count > 0:
         diff_params = params - state.params
         diff_updates = grad - state.updates
-        dot_du_dw = _vdot(diff_updates, diff_params)
+        dot_du_dw = _vdot(diff_updates, diff_params, mesh)
         weight = torch.where(dot_du_dw == 0.0, torch.zeros_like(dot_du_dw), 1.0 / dot_du_dw)
     else:
         diff_params = torch.zeros_like(params)
@@ -109,11 +114,11 @@ def lbfgs_direction(state: ZoomLBFGSState, grad: torch.Tensor, params: torch.Ten
     # 2. The scale of the identity: <du, dw> / |du|^2, and at the first
     # step the capped reciprocal of the gradient's norm.
     if state.count > 0:
-        denominator = _vdot(diff_updates, diff_updates)
+        denominator = _vdot(diff_updates, diff_updates, mesh)
         identity_scale = torch.where(denominator > 0.0, dot_du_dw / denominator,
                                      torch.ones_like(denominator))
     else:
-        identity_scale = torch.clamp(1.0 / torch.sqrt(_vdot(grad, grad)), max=1.0)
+        identity_scale = torch.clamp(1.0 / torch.sqrt(_vdot(grad, grad, mesh)), max=1.0)
     # 3. The two-loop product P·g, newest memory entry first.
     dw, du, rhos = state.diff_params, state.diff_updates, state.weights
     indices = [(memory_idx + j) % m for j in range(m)]
@@ -121,12 +126,12 @@ def lbfgs_direction(state: ZoomLBFGSState, grad: torch.Tensor, params: torch.Ten
     alphas = [None] * m
     for j in reversed(range(m)):
         i = indices[j]
-        alphas[j] = rhos[i] * _vdot(dw[i], vec)
+        alphas[j] = rhos[i] * _vdot(dw[i], vec, mesh)
         vec = vec + (-alphas[j]) * du[i]
     vec = identity_scale * vec
     for j in range(m):
         i = indices[j]
-        beta = rhos[i] * _vdot(du[i], vec)
+        beta = rhos[i] * _vdot(du[i], vec, mesh)
         vec = vec + (alphas[j] - beta) * dw[i]
     new_state = state._replace(count=state.count + 1, params=params, updates=grad)
     return -1.0 * vec, new_state
@@ -173,7 +178,8 @@ def _curvature_error(slope, slope_init):
 
 def zoom_linesearch(value_and_grad_fn: Callable, params: torch.Tensor,
                     updates: torch.Tensor, value, grad: torch.Tensor,
-                    max_linesearch_steps: int = MAX_LINESEARCH_STEPS) -> LinesearchResult:
+                    max_linesearch_steps: int = MAX_LINESEARCH_STEPS,
+                    mesh=None) -> LinesearchResult:
     """optax's ``zoom_linesearch`` from the initial guess 1 along ``updates``.
 
     ``value_and_grad_fn(x) -> (scalar tensor, gradient)``; ``value`` (a
@@ -182,7 +188,7 @@ def zoom_linesearch(value_and_grad_fn: Callable, params: torch.Tensor,
     and slope, to the host: one read per evaluation.
     """
     with np.errstate(all="ignore"):
-        value_init, slope_init = _read(value, _vdot(updates, grad))
+        value_init, slope_init = _read(value, _vdot(updates, grad, mesh))
         low = high = cubic_ref = safe_stepsize = stepsize = _ZERO
         value_low = value_high = value_cubic_ref = safe_value = cur_value = value_init
         slope_low = slope_high = cur_slope = slope_init
@@ -194,7 +200,7 @@ def zoom_linesearch(value_and_grad_fn: Callable, params: torch.Tensor,
                 prev_stepsize, prev_value, prev_slope = stepsize, cur_value, cur_slope
                 stepsize = _ONE if count == 0 else _INCREASE_FACTOR * prev_stepsize
                 cur_value, cur_slope = _trial(value_and_grad_fn, params, stepsize,
-                                              updates)
+                                              updates, mesh)
                 decrease_error = _decrease_error(stepsize, cur_value, cur_slope,
                                                  value_init, slope_init)
                 error = np.maximum(decrease_error, _curvature_error(cur_slope, slope_init))
@@ -227,7 +233,7 @@ def zoom_linesearch(value_and_grad_fn: Callable, params: torch.Tensor,
                 else:
                     stepsize = (low + high) / _TWO
                 cur_value, cur_slope = _trial(value_and_grad_fn, params, stepsize,
-                                              updates)
+                                              updates, mesh)
                 decrease_error = _decrease_error(stepsize, cur_value, cur_slope,
                                                  value_init, slope_init)
                 error = np.maximum(decrease_error, _curvature_error(cur_slope, slope_init))
@@ -262,20 +268,20 @@ def _read(*scalars) -> Tuple[np.float32, ...]:
     return tuple(torch.stack([s.detach().float() for s in scalars]).cpu().numpy())
 
 
-def _trial(value_and_grad_fn, params, stepsize, updates):
+def _trial(value_and_grad_fn, params, stepsize, updates, mesh=None):
     """(value, slope along ``updates``) at params + stepsize·updates."""
     value, grad = value_and_grad_fn(params + float(stepsize) * updates)
-    return _read(value, _vdot(grad, updates))
+    return _read(value, _vdot(grad, updates, mesh))
 
 
 def zoom_lbfgs_update(state: ZoomLBFGSState, params: torch.Tensor, value, grad,
                       value_and_grad_fn: Callable,
-                      max_linesearch_steps: int = MAX_LINESEARCH_STEPS):
+                      max_linesearch_steps: int = MAX_LINESEARCH_STEPS, mesh=None):
     """One ``optax.lbfgs`` iteration: returns (params + lr·d, new state)
     for the L-BFGS direction d and the step lr the line search accepts.
     ``value`` and ``grad`` are the objective and its gradient at ``params``."""
-    direction, state = lbfgs_direction(state, grad, params)
+    direction, state = lbfgs_direction(state, grad, params, mesh)
     ls = zoom_linesearch(value_and_grad_fn, params, direction, value, grad,
-                         max_linesearch_steps)
+                         max_linesearch_steps, mesh)
     new_params = params + float(ls.stepsize) * direction
     return new_params, state._replace(linesearch_steps=ls.num_steps)

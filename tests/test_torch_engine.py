@@ -124,7 +124,7 @@ def test_cli_writes_output_and_trace(tmp_path, content_pil, style_pil):
     t = json.loads(trace.read_text())
     assert [it["i"] for it in t["iterates"]] == [1, 2, 3, 4, 5]
     assert all(np.isfinite(it["loss"]) for it in t["iterates"])
-    assert t["args"]["devices"] == "cpu" and t["args"]["end_scale"] == 64
+    assert t["args"]["devices"] == ["cpu"] and t["args"]["end_scale"] == 64
     # TPU-only flags and unknown optimizers are absent; lbfgs-zoom is offered.
     parser = tcli.build_parser(T.StyleTransfer.stylize)
     for flag in (["--sqrtm", "xla"], ["--remat", "on"], ["--bands", "4"],
@@ -140,7 +140,10 @@ def test_port_imports_no_jax():
             "style_transfer_tpu_torch.web.server, style_transfer_tpu_torch.web.client, "
             "style_transfer_tpu_torch.zoom_lbfgs, style_transfer_tpu_torch.utils.metrics, "
             "style_transfer_tpu_torch.utils.lpips, "
-            "style_transfer_tpu_torch.models.fingerprint; "
+            "style_transfer_tpu_torch.models.fingerprint, "
+            "style_transfer_tpu_torch.parallel.launch, "
+            "style_transfer_tpu_torch.parallel.multihost, "
+            "style_transfer_tpu_torch.parallel.checks; "
             "sys.path.insert(0, 'tools'); import fidelity_torch; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'optax' or m.startswith('optax.') "
