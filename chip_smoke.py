@@ -89,10 +89,42 @@ each of which exits non-zero on failure:
       to rtol 1e-3;
     - (lbfgs, lyap) over 128 -> 256 from the gray init on 2 ranks, 10
       iterations a scale: B2 and B3 launches on each rank equal to the
-      one-device run's (120 each), losses to rtol 1e-3.
+      one-device run's (120 each), losses to rtol 1e-3;
+    - the stop: phase 4's pyramid on 2 ranks as a subprocess in its own
+      session, checkpoints every 10 iterations, SIGINT to its process group
+      once the third scale's first checkpoint exists (a terminal's Ctrl-C):
+      exit 0 within 60 s with the output and the trace (with ``ranks``),
+      stopped after a chunk before the end; ``--resume`` on 2 ranks to the
+      end, its losses against the first leg's to rtol 1e-3 and B1 launched
+      4 times per resumed iteration on each rank;
+13. BASELINE.json config #5 at print size, ``random_params(0)``, FP32: the
+    CLI pyramid 128 -> 2896x2172 (ten scales, 10 iterations each, chunks
+    of 5) with ``--web`` (phase 8's client reads at least one event of the
+    2896 scale, then the JPEG) and ``-o out.tif``: finite losses, a
+    2896x2172 16-bit TIFF with the sRGB profile (the file equals the
+    port's own encoding of its pixels), 400 B1 launches; ms/iter of the
+    2048 and 2896 scales over their last 5 iterations, peak memory per
+    scale, the 2896 scale's entry time. Then the 2896 scale alone (10
+    iterations): FP32, bf16 (``--precision bf16``) and on 2 ranks sharing
+    the card (``--align 1``, losses against the FP32 one-device run to
+    rtol 1e-3, 40 B1 launches on each rank), ms/iter and peak memory of
+    each (per rank, with halo and all-reduce ms/iter, for the 2 ranks);
+14. BASELINE.json configs #3 and #4: card against CPU (phase 3's harness,
+    128 px, 10 iterations, rtol 1e-3) for average pooling, L2 pooling with
+    the scaled content loss, the Gram loss from the ``style_stats`` init,
+    and three styles weighted [2, -1, 1] with content weight 0.15 and TV
+    weight 20; then phase 4's pyramid and checks through the CLI with
+    ``--pooling average``, ``--pooling l2 --content-loss scaled``,
+    ``--style-loss gram --init style_stats --style-scale-fac 0.7 --align
+    8`` (the aligned canvases, and no NS launch: Gram takes no square
+    root), ``--style-size 256``, and the three styles with
+    ``--style-weights 2 -1 1 --content-weight 0.15 --tv-weight 20``; 400
+    B1 launches on each W2 leg. The weighted blend is one W2 target (the
+    blended moments), so its loss is still a distance and falls as phase
+    4's does.
 
-Everything but phase 9, the bf16 rows of phase 6 and the bf16 output of
-phase 11 runs in FP32 (TF32 off for matmuls and cuDNN). The weights are the
+Everything but phase 9, the bf16 rows of phase 6, the bf16 output of
+phase 11 and the bf16 leg of phase 13 runs in FP32 (TF32 off for matmuls and cuDNN). The weights are the
 deterministic He-normal ``random_params(0)``. The last stdout line is ``{"ok": true, "device":
 {...}}``; the line before it lists the kernels, the one before that the
 card's name and power limit.
@@ -134,6 +166,10 @@ BF16_TAP_TOL = 5e-2  # of max, the JAX package's bound (tests/test_vgg.py)
 SHARDED_RTOL = 1e-3  # sharded against one-device card runs: the CPU bar
 PYRAMID = [(128, 96), (181, 136), (256, 192), (362, 272), (512, 384)]
 BIG_SCALE, BIG_CANVAS = 1448, (1448, 1086)  # a print-size scale of the content
+# BASELINE.json config #5: the content's pyramid 128 -> 2896 (ten scales).
+PRINT_SCALE = 2896
+PRINT_PYRAMID = [(128, 96), (181, 136), (256, 192), (362, 272), (512, 384), (724, 543),
+                 (1024, 768), (1448, 1086), (2048, 1536), (2896, 2172)]
 DEVICE = "cuda:0"
 # Published H100 SXM peaks: dense TF32 on the tensor cores, FP32 outside
 # them, and HBM3.
@@ -606,7 +642,8 @@ def _reset_launch_counts():
 def _run_cli(tmp, content_path, style_path, label, flags):
     """One CLI run (the pyramid 128 -> 512, 20 iterations a scale, unless
     ``flags`` override it) with the counts set to 0 just before it; prints
-    ms/iter per scale and returns (iterates, output path, launches)."""
+    ms/iter per scale and returns (iterates, output path, launches).
+    ``style_path`` is one style image or a list of them."""
     from style_transfer_tpu_torch import cli
     from style_transfer_tpu_torch.models.weights import random_params, save_params
 
@@ -614,7 +651,8 @@ def _run_cli(tmp, content_path, style_path, label, flags):
     if not weights.is_file():
         save_params(random_params(0), weights)
     out, trace = tmp / f"out_{label}.png", tmp / f"trace_{label}.json"
-    argv = [str(content_path), str(style_path), "--devices", DEVICE,
+    styles = style_path if isinstance(style_path, list) else [style_path]
+    argv = [str(content_path), *map(str, styles), "--devices", DEVICE,
             "--end-scale", "512", "--min-scale", "128", "-i", "20", "-ii", "20",
             "-o", str(out), "--trace", str(trace), "--vgg-weights", str(weights),
             *flags]
@@ -642,11 +680,11 @@ def _by_scale(its):
     return by_scale
 
 
-def _cli_phase(tmp, content_path, style_path, label, flags, expect):
+def _cli_phase(tmp, content_path, style_path, label, flags, expect, sizes=PYRAMID):
     """One CLI pyramid run; checks the run and that the launch counts equal
     ``expect``."""
     its, out, launches = _run_cli(tmp, content_path, style_path, label, flags)
-    _check_pyramid(its, out)
+    _check_pyramid(its, out, sizes)
     print(f"  kernel launches over the run: {launches} (expected {expect}: 4 groups "
           "x 100 iterations of each kernel on the path)")
     if launches != expect:
@@ -654,27 +692,29 @@ def _cli_phase(tmp, content_path, style_path, label, flags, expect):
     return launches
 
 
-def _check_pyramid(its, out):
-    """The pyramid's scales, 20 finite losses each falling over the first
-    scale, and a non-constant 512x384 output."""
+def _check_pyramid(its, out, sizes=PYRAMID, iters=20):
+    """The pyramid's scales, ``iters`` finite losses each, falling over the
+    first scale, and a non-constant output of the last scale's size
+    (``out`` None: not read here)."""
     import numpy as np
     from PIL import Image
 
     by_scale = _by_scale(its)
-    sizes = list(by_scale)
-    if sizes != PYRAMID:
-        raise AssertionError(f"unexpected pyramid {sizes}")
-    if not all(len(s) == 20 for s in by_scale.values()):
-        raise AssertionError("each scale should run 20 iterations")
+    if list(by_scale) != list(sizes):
+        raise AssertionError(f"unexpected pyramid {list(by_scale)}")
+    if not all(len(s) == iters for s in by_scale.values()):
+        raise AssertionError(f"each scale should run {iters} iterations")
     losses = np.array([i["loss"] for i in its])
     if not np.isfinite(losses).all():
         raise AssertionError("non-finite loss")
     first = by_scale[sizes[0]]
     if not first[-1]["loss"] < first[0]["loss"]:
         raise AssertionError("the first scale's loss did not decrease")
+    if out is None:
+        return
     with Image.open(out) as img:
-        if img.size != PYRAMID[-1]:
-            raise AssertionError(f"output is {img.size}, expected {PYRAMID[-1]}")
+        if img.size != tuple(sizes[-1]):
+            raise AssertionError(f"output is {img.size}, expected {sizes[-1]}")
         arr = np.asarray(img.convert("RGB"))
         if arr.std() == 0:
             raise AssertionError("output image is constant")
@@ -844,9 +884,12 @@ def _resume_phase(tmp, content_path, style_path):
                       f"{secs * 1e3:.1f} ms, {size / 2**20:.2f} MiB")
 
 
-def _web_phase(tmp, content_path, style_path):
-    """Phase 4's pyramid with ``--web``: a client connected as the server
-    starts reads the page, the events and, after WIDone, the image."""
+@contextlib.contextmanager
+def _watched_web():
+    """Phase 8's client: every ``WebInterface`` the CLI makes inside the
+    block gets a standard-library client, connected as the server starts,
+    that reads the page, the events and, after WIDone, the image. Yields
+    (what it saw, the interfaces made)."""
     import io
 
     from PIL import Image
@@ -854,10 +897,6 @@ def _web_phase(tmp, content_path, style_path):
     from style_transfer_tpu_torch import srgb_profile
     from style_transfer_tpu_torch.web import client, server
 
-    sock = socket.socket()
-    sock.bind(("127.0.0.1", 0))
-    port = sock.getsockname()[1]
-    sock.close()
     seen = {"events": [], "errors": []}
     made = []
 
@@ -889,29 +928,55 @@ def _web_phase(tmp, content_path, style_path):
     live = server.WebInterface
     server.WebInterface = Watched
     try:
-        its, _, launches = _run_cli(tmp, content_path, style_path, "web",
-                                    ["--web", "--host", "127.0.0.1", "--port", str(port)])
+        yield seen, made
     finally:
         server.WebInterface = live
+
+
+def _free_port():
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    return port
+
+
+def _check_web(seen, made, sizes, final):
+    """The client of the one server read the page, STIterates of sizes in
+    ``sizes`` only, WIDone last, then a JPEG of the ``final`` canvas with
+    the ICC profile; returns the STIterate events."""
     (wi,) = made
     wi.reader.join(30)
     if wi.reader.is_alive() or wi.process.is_alive():
         raise AssertionError("web: the client or the server process is still running")
     events = seen["events"]
     iterates = [e for e in events if e["_type"] == "STIterate"]
-    print(f"web preview: page {seen.get('page')}, {len(iterates)} STIterate events "
-          f"(of {len(its)} iterations; a full queue drops frames), last event "
-          f"{events[-1]['_type'] if events else None}, image {seen.get('image')}, "
-          f"client errors {seen['errors']}, launches {launches}")
     page = seen.get("page")
     if page is None or page[0] != 200 or not page[1].startswith("text/html"):
         raise AssertionError(f"web: GET / gave {page}")
     if not iterates or events[-1]["_type"] != "WIDone":
         raise AssertionError("web: no STIterate, or WIDone not last")
-    if not {(e["w"], e["h"]) for e in iterates} <= set(PYRAMID):
+    if not {(e["w"], e["h"]) for e in iterates} <= set(sizes):
         raise AssertionError("web: an STIterate of a size not on the pyramid")
-    if seen.get("image") != (200, "JPEG", PYRAMID[-1], True):
+    if seen.get("image") != (200, "JPEG", tuple(final), True):
         raise AssertionError(f"web: GET /image gave {seen.get('image')}")
+    return iterates
+
+
+def _web_phase(tmp, content_path, style_path):
+    """Phase 4's pyramid with ``--web``: a client connected as the server
+    starts reads the page, the events and, after WIDone, the image."""
+    with _watched_web() as (seen, made):
+        its, _, launches = _run_cli(tmp, content_path, style_path, "web",
+                                    ["--web", "--host", "127.0.0.1", "--port",
+                                     str(_free_port())])
+    events = seen["events"]
+    print(f"web preview: page {seen.get('page')}, "
+          f"{sum(e['_type'] == 'STIterate' for e in events)} STIterate events "
+          f"(of {len(its)} iterations; a full queue drops frames), last event "
+          f"{events[-1]['_type'] if events else None}, image {seen.get('image')}, "
+          f"client errors {seen['errors']}, launches {launches}")
+    _check_web(seen, made, PYRAMID, PYRAMID[-1])
     if launches["ns_sqrtm_yz"] != 400:
         raise AssertionError(f"web: launches {launches}")
     ref = _by_scale(json.loads((tmp / "trace_adam-trace.json").read_text())["iterates"])
@@ -1068,7 +1133,7 @@ def _check_close(label, its, ref_its):
     by = {}
     for it, ref in zip(its, ref_its):
         by.setdefault((it["w"], it["h"]), []).append(abs(it["loss"] - ref["loss"]) / abs(ref["loss"]))
-    print(f"  {label}: max rel loss diff against one device {rel:.3g} (limit "
+    print(f"  {label}: max rel loss diff {rel:.3g} (limit "
           f"{SHARDED_RTOL}); per scale " + ", ".join(
               f"{w}x{h}: {max(v):.2e}" for (w, h), v in by.items()))
     if not np.isfinite(rel) or rel > SHARDED_RTOL:
@@ -1129,6 +1194,236 @@ def _sharded_phase(tmp, content_path, style_path, main_path):
     if (DEVICE != "cpu" and expect["ns_sqrtm"] != 120) or any(
             r["kernel_launches"] != expect for r in ranks):
         raise AssertionError(f"(lbfgs, lyap) rank launches differ from one device's {expect}")
+    _sharded_stop_leg(tmp, content_path, style_path)
+
+
+def _sharded_stop_leg(tmp, content_path, style_path):
+    """Phase 12's stop leg: the CLI as a subprocess in its own session on 2
+    ranks sharing the card, phase 4's pyramid with checkpoints every 10
+    iterations (chunks of 10), and SIGINT to its process group once the
+    third scale's first checkpoint exists, as a terminal's Ctrl-C does. It
+    must exit 0 within 60 s with the output and the trace (with ``ranks``),
+    stopped after a chunk; ``--resume`` on 2 ranks runs the rest, whose
+    losses equal phase 12's first leg (same pyramid, 2 ranks) and whose
+    ranks launch B1 4 times per resumed iteration."""
+    import os
+    import signal
+
+    from style_transfer_tpu_torch.models.weights import random_params, save_params
+    from style_transfer_tpu_torch.utils.checkpoint import load_checkpoint
+
+    weights = tmp / "vgg19_random0.npz"
+    if not weights.is_file():
+        save_params(random_params(0), weights)
+    ck, out, trace = tmp / "ck_stop.npz", tmp / "out_stop.png", tmp / "trace_stop.json"
+    run = ["--min-scale", "128", "--end-scale", "512", "-i", "20", "-ii", "20",
+           "--checkpoint", str(ck), "--checkpoint-every", "10", "--callback-chunk", "10"]
+    argv = [sys.executable, "-m", "style_transfer_tpu_torch.cli", str(content_path),
+            str(style_path), "--vgg-weights", str(weights), "--devices", DEVICE, DEVICE,
+            "-o", str(out), "--trace", str(trace), *run]
+    log = tmp / "stop_cli.log"
+    with open(log, "w") as fp:
+        proc = subprocess.Popen(argv, cwd=tmp, env=dict(os.environ, PYTHONPATH=str(REPO)),
+                                start_new_session=True, stdout=fp, stderr=subprocess.STDOUT)
+    try:
+        t0, scale_index = time.monotonic(), -1
+        while proc.poll() is None and time.monotonic() - t0 < 300:
+            if ck.is_file():
+                scale_index = load_checkpoint(ck)["scale_index"]
+                if scale_index >= 2:
+                    break
+            time.sleep(0.05)
+        if scale_index < 2:
+            raise AssertionError(f"stop leg: no checkpoint of the third scale (exit "
+                                 f"{proc.poll()}): {log.read_text()[-2000:]}")
+        os.killpg(proc.pid, signal.SIGINT)
+        t_sig = time.monotonic()
+        try:
+            rc = proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            raise AssertionError("stop leg: the run did not end within 60 s of SIGINT")
+        secs = time.monotonic() - t_sig
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    if rc != 0:
+        raise AssertionError(f"stop leg: exit {rc}: {log.read_text()[-2000:]}")
+    t = json.loads(trace.read_text())
+    its, ranks = t["iterates"], t.get("ranks")
+    last = its[-1]
+    print(f"  SIGINT to the 2-rank pyramid at scale 3's first checkpoint: exit {rc} "
+          f"{secs:.2f} s after the signal, {len(its)} iterations, last "
+          f"{last['w']}x{last['h']} iteration {last['i']}, ranks "
+          f"{[r['rank'] for r in ranks or []]}, output {out.is_file()}")
+    if [r["rank"] for r in ranks or []] != [0, 1] or not out.is_file():
+        raise AssertionError("stop leg: no output or no ranks report")
+    if len(its) >= 100 or last["i"] % 10:
+        raise AssertionError("stop leg: the run did not stop after a chunk before its end")
+    resumed, _, rank_list = _sharded_cli(tmp, content_path, style_path, "stop-resumed",
+                                         run + ["--resume"], 2)
+    ref = json.loads((tmp / "trace_sharded-adam-trace.json").read_text())["iterates"]
+    ref = ref[len(ref) - len(resumed):]
+    _check_close("the resumed 2-rank pyramid against phase 12's first leg", resumed, ref)
+    expect = {"ns_sqrtm_yz": 4 * len(resumed), "ns_sqrtm": 0, "lyap_bwd": 0}
+    if DEVICE != "cpu" and any(r["kernel_launches"] != expect for r in rank_list):
+        raise AssertionError(f"stop leg: resumed rank launches differ from {expect}")
+    print(f"  resumed from {resumed[0]['w']}x{resumed[0]['h']} iteration "
+          f"{resumed[0]['i']}: {len(resumed)} iterations, B1 launches per rank "
+          f"{[r['kernel_launches']['ns_sqrtm_yz'] for r in rank_list]} (expected "
+          f"{expect['ns_sqrtm_yz']})")
+
+
+def _ms_last5(scale_its):
+    """ms/iter over a scale's last 5 iterations: its last chunk of 5, timed
+    from the previous chunk's sync (``--callback-chunk 5``)."""
+    return (scale_its[-1]["time"] - scale_its[-6]["time"]) / 5 * 1e3
+
+
+def _check_tiff16(path, size):
+    """A 16-bit RGB TIFF of ``size`` (w, h) with the sRGB profile: the file
+    must be, byte for byte, what the port's ``io_color`` encodes for the
+    pixels it holds. Returns the share of samples that an 8-bit image
+    could not hold (not a multiple of 257)."""
+    import numpy as np
+
+    from style_transfer_tpu_torch import io_color, srgb_profile
+
+    data = Path(path).read_bytes()
+    w, h = size
+    if data[:4] != b"II*\x00" or len(data) < 8 + w * h * 6:
+        raise AssertionError(f"{path}: not a {w}x{h} 16-bit little-endian TIFF")
+    pixels = np.frombuffer(data, "<u2", count=w * h * 3, offset=8).reshape(h, w, 3)
+    if io_color.encode_tiff_rgb16(pixels.copy(), icc_profile=srgb_profile) != data:
+        raise AssertionError(f"{path}: not the port's 16-bit sRGB TIFF of {w}x{h}")
+    if pixels.std() == 0:
+        raise AssertionError(f"{path}: constant image")
+    return float((pixels % 257 != 0).mean())
+
+
+def _print_phase(tmp, content_path, style_path):
+    """Phase 13 (see the module docstring)."""
+    sizes = PRINT_PYRAMID
+    w, h = sizes[-1]
+    chunk = ["--callback-chunk", "5"]
+    tif = tmp / "out_print.tif"
+    with _watched_web() as (seen, made):
+        its, _, launches = _run_cli(
+            tmp, content_path, style_path, "print-pyramid",
+            ["--end-scale", str(PRINT_SCALE), "-i", "10", "-ii", "10", *chunk, "-o",
+             str(tif), "--web", "--host", "127.0.0.1", "--port", str(_free_port())])
+    _check_pyramid(its, None, sizes, iters=10)
+    deep = _check_tiff16(tif, (w, h))
+    iterates = _check_web(seen, made, sizes, (w, h))
+    at_print = sum((e["w"], e["h"]) == (w, h) for e in iterates)
+    by = _by_scale(its)
+    prev, top = by[sizes[-2]], by[(w, h)]
+    # Inside a chunk the iterates' times are interpolated from its start:
+    # the 2896 scale's first chunk started at 2 t_1 - t_2.
+    entry = 2 * top[0]["time"] - top[1]["time"] - prev[-1]["time"]
+    print(f"print pyramid to {w}x{h}: {len(its)} iterations over {len(sizes)} scales; "
+          f"TIFF {w}x{h}, 16 bits with the sRGB profile, {deep:.1%} of samples "
+          f"beyond 8 bits; web: {at_print} STIterate events of {w}x{h}, image "
+          f"{seen.get('image')}, client errors {seen['errors']}; launches {launches}")
+    for size in sizes[-2:]:
+        print(f"  {size[0]}x{size[1]} (--web, FP32): {_ms_last5(by[size]):.2f} ms/iter "
+              "over its last 5 iterations")
+    print(f"  {w}x{h} scale entry (from the last iterate of {prev[0]['w']}x"
+          f"{prev[0]['h']} to the first chunk's start): {entry:.3f} s")
+    if not at_print:
+        raise AssertionError(f"print pyramid: the client saw no event of {w}x{h}")
+    if DEVICE != "cpu" and launches != {"ns_sqrtm_yz": 400, "ns_sqrtm": 0, "lyap_bwd": 0}:
+        raise AssertionError(f"print pyramid: launches {launches}")
+
+    one = ["--min-scale", str(PRINT_SCALE), "--end-scale", str(PRINT_SCALE), "-ii", "10",
+           "--align", "1", *chunk]
+    legs = {}
+    for label, flags in (("print-f32", []), ("print-bf16", ["--precision", "bf16"])):
+        legs[label], _, launches = _run_cli(tmp, content_path, style_path, label,
+                                            one + flags)
+        _check_pyramid(legs[label], None, [(w, h)], iters=10)
+        if DEVICE != "cpu" and launches["ns_sqrtm_yz"] != 40:
+            raise AssertionError(f"{label}: launches {launches}")
+    sharded, _, ranks = _sharded_cli(tmp, content_path, style_path, "sharded-print", one, 2)
+    _check_close(f"{w}x{h} on 2 ranks against one device", sharded, legs["print-f32"])
+    for r in ranks:
+        if DEVICE != "cpu" and r["kernel_launches"] != {"ns_sqrtm_yz": 40, "ns_sqrtm": 0,
+                                                        "lyap_bwd": 0}:
+            raise AssertionError(f"sharded print: rank launches {r['kernel_launches']}")
+    def peak(scale_its):
+        return max(i["gpu_ram"] for i in scale_its) / 2**20
+
+    f32, bf16 = legs["print-f32"], legs["print-bf16"]
+    rank_peaks = ", ".join(f"{r['peak_memory'] / 2**20:.1f}" for r in ranks)
+    print(f"  {w}x{h} alone, over its last 5 iterations: FP32 {_ms_last5(f32):.2f} "
+          f"ms/iter (peak {peak(f32):.1f} MiB), bf16 {_ms_last5(bf16):.2f} ms/iter (peak "
+          f"{peak(bf16):.1f} MiB), 2 ranks sharing the card {_ms_last5(sharded):.2f} "
+          f"ms/iter (rank peaks {rank_peaks} MiB); in the pyramid, FP32 with --web, "
+          f"{_ms_last5(top):.2f} ms/iter, peak {peak(top):.1f} MiB")
+
+
+def _more_styles(tmp):
+    """Two more blocky style images, made as ``_images`` makes its style,
+    from other seeds and at other sizes (384x320, 256x448)."""
+    import numpy as np
+    from PIL import Image
+
+    paths = []
+    for seed, (bh, bw) in ((1, (40, 48)), (2, (56, 32))):
+        style = np.random.RandomState(seed).randint(0, 255, (bh, bw, 3)).astype(np.float64)
+        paths.append(tmp / f"style{seed}.png")
+        Image.fromarray(np.kron(style, np.ones((8, 8, 1))).astype(np.uint8)).save(paths[-1])
+    return paths
+
+
+def _configs_phase(tmp, content_path, style_path):
+    """Phase 14 (see the module docstring)."""
+    import numpy as np
+    from PIL import Image
+
+    from style_transfer_tpu_torch import StyleTransfer
+    from style_transfer_tpu_torch.models.weights import random_params
+    from style_transfer_tpu_torch.utils.scales import align_size
+
+    styles = [style_path, *_more_styles(tmp)]
+    blend = dict(style_weights=[2, -1, 1], content_weight=0.15, tv_weight=20)
+    params = random_params(0)
+    for label, engine_kw, stylize_kw, n_styles in (
+            ("average", {"pooling": "average"}, {}, 1),
+            ("l2, scaled", {"pooling": "l2", "content_loss": "scaled"}, {}, 1),
+            ("gram, style_stats", {"style_loss": "gram"}, {"init": "style_stats"}, 1),
+            ("3 styles [2, -1, 1]", {}, blend, 3)):
+        losses = []
+        for device in ("cuda:0", "cpu"):
+            st = StyleTransfer(device=device, weights=params, callback_chunk=10, **engine_kw)
+            its = []
+            images = [Image.open(p).convert("RGB") for p in styles[:n_styles]]
+            with Image.open(content_path) as c:
+                st.stylize(c.convert("RGB"), images, min_scale=128, end_scale=128,
+                           iterations=10, initial_iterations=10, callback=its.append,
+                           **stylize_kw)
+            losses.append(np.array([i.loss for i in its]))
+        card, cpu = losses
+        rel = np.abs(card - cpu) / np.abs(cpu)
+        print(f"card vs cpu [{label}] at 128 px, 10 iterations: max rel loss diff "
+              f"{rel.max():.2e} (limit {CPU_RTOL}); first/last loss card "
+              f"{card[0]:.7g}/{card[-1]:.7g}, cpu {cpu[0]:.7g}/{cpu[-1]:.7g}")
+        if len(card) != 10 or not (rel <= CPU_RTOL).all():
+            raise AssertionError(f"card and cpu losses disagree [{label}]")
+
+    w2 = {"ns_sqrtm_yz": 400, "ns_sqrtm": 0, "lyap_bwd": 0}
+    aligned = [align_size(size, 8) for size in PYRAMID]
+    for label, flags, expect, sizes in (
+            ("average", ["--pooling", "average"], w2, PYRAMID),
+            ("l2-scaled", ["--pooling", "l2", "--content-loss", "scaled"], w2, PYRAMID),
+            ("gram-stats", ["--style-loss", "gram", "--init", "style_stats",
+                            "--style-scale-fac", "0.7", "--align", "8"],
+             {"ns_sqrtm_yz": 0, "ns_sqrtm": 0, "lyap_bwd": 0}, aligned),
+            ("style-size", ["--style-size", "256"], w2, PYRAMID),
+            ("three-styles", ["--style-weights", "2", "-1", "1", "--content-weight",
+                              "0.15", "--tv-weight", "20"], w2, PYRAMID)):
+        _cli_phase(tmp, content_path, styles if label == "three-styles" else style_path,
+                   f"config-{label}", flags, expect, sizes)
 
 
 def main():
@@ -1180,6 +1475,10 @@ def main():
             _fidelity_phase(tmp)
             phase = "the sharded path"
             _sharded_phase(tmp, content_path, style_path, main_path)
+            phase = "config #5 at print size"
+            _print_phase(tmp, content_path, style_path)
+            phase = "configs #3 and #4"
+            _configs_phase(tmp, content_path, style_path)
     except Exception:
         traceback.print_exc()
         print(f"chip_smoke.py: FAILED in phase: {phase}", file=sys.stderr)

@@ -24,7 +24,10 @@ run: every rank calls ``stylize`` with the same arguments, holds its slab of
 each scale's canvas (the canvas snapped to shard-divisible sizes as the JAX
 engine's), gathers the whole image and Adam's moments to cross a scale and
 re-slices them, and takes part in every gather; only rank 0 runs the
-callbacks and writes checkpoints.
+callbacks and writes checkpoints. An interrupt stops every rank after the
+same chunk: a ``KeyboardInterrupt`` from rank 0's callbacks or a Ctrl-C on
+any rank (``Mesh.interrupt``) is agreed on at the chunk's end, and every
+rank then raises ``KeyboardInterrupt`` out of ``stylize``.
 """
 
 import math
@@ -39,7 +42,7 @@ from PIL import Image
 from .models import weights as W
 from .models.vgg import cast_params, extract_features, fp32_math
 from .ops import losses as L
-from .parallel.mesh import broadcast, gather_image, shard_image
+from .parallel.mesh import any_rank_stops, broadcast, gather_image, shard_image
 from .step import (
     AdamState,
     LBFGSState,
@@ -572,16 +575,27 @@ class StyleTransfer:
                                     ckpt_writer, checkpoint, state, optimizer,
                                     scale_idx, done, (cw, ch, scale))
                                 iters_since_ckpt = 0
+                        stop = False
                         if callback is not None and self._is_rank0:
                             ram = peak_device_ram(self.device)
-                            for k in range(n):
-                                callback(STIterate(
-                                    w=cw, h=ch, i=done - n + k + 1, i_max=actual_its,
-                                    loss=float(losses[k]),
-                                    time=t_prev + (t_now - t_prev) * (k + 1) / n,
-                                    gpu_ram=ram,
-                                ))
+                            try:
+                                for k in range(n):
+                                    callback(STIterate(
+                                        w=cw, h=ch, i=done - n + k + 1, i_max=actual_its,
+                                        loss=float(losses[k]),
+                                        time=t_prev + (t_now - t_prev) * (k + 1) / n,
+                                        gpu_ram=ram,
+                                    ))
+                            except KeyboardInterrupt:
+                                if self.mesh is None:
+                                    raise
+                                stop = True
                         t_prev = t_now
+                        # Under a mesh the ranks stop together, after this
+                        # chunk: rank 0's interrupted callback or any rank's
+                        # Ctrl-C (the launcher's SIGINT flag) stops them all.
+                        if self.mesh is not None and any_rank_stops(self.mesh, stop):
+                            raise KeyboardInterrupt
 
                     # Each new scale starts from the previous scale's averaged
                     # iterate (ref :495-497); Adam's moments are carried over

@@ -6,8 +6,9 @@ evaluates the loss and its gradient at the image, then takes ``steps``
 iterations of the optimizer, either sharded over a mesh or on one device.
 It returns what it computed as whole-image arrays, so the two runs can be
 compared; :func:`run_ranks` is the same as a rank program for
-``launch.launch``. They live in the package, not in the tests, so that the
-processes the launcher starts import torch only.
+``launch.launch``. :func:`stylize_ranks` runs the sharded engine, for
+interrupts and resumes. They live in the package, not in the tests, so that
+the processes the launcher starts import torch only.
 
 A spec is a dict: ``hw`` (the canvas), and optionally ``seed`` (1),
 ``cfg`` (``StepConfig`` keyword arguments), ``steps`` (0), ``optimizer``
@@ -28,7 +29,7 @@ from ..step import (LoopState, StepConfig, adam_init, build_loss_fn,
 from ..utils.ema import ema_init
 from .mesh import gather_image, shard_image
 
-__all__ = ["problem", "run", "run_ranks", "fail_on_rank"]
+__all__ = ["problem", "run", "run_ranks", "stylize_ranks", "fail_on_rank"]
 
 _PARAMS = {}  # device -> the weights, made once per process (about 1 s)
 
@@ -101,6 +102,62 @@ def run_ranks(mesh, specs, out_dir):
     ``spec{i}_rank{r}.npz`` in ``out_dir``."""
     for i, spec in enumerate(specs):
         np.savez(Path(out_dir) / f"spec{i}_rank{mesh.rank}.npz", **run(spec, mesh))
+
+
+def _stylize_images():
+    """A 128x96 gradient content and an 80x80 random style image (the
+    tests' conftest images)."""
+    from PIL import Image
+
+    yy, xx = np.mgrid[0:96, 0:128]
+    content = np.stack([xx / 128 * 255, yy / 96 * 255, (xx + yy) / 224 * 255], -1)
+    style = np.random.RandomState(7).randint(0, 255, (80, 80, 3))
+    return Image.fromarray(content.astype(np.uint8)), Image.fromarray(style.astype(np.uint8))
+
+
+def stylize_ranks(mesh, runs, out_dir):
+    """Rank program: one sharded ``StyleTransfer(callback_chunk=5)`` runs
+    ``stylize`` once per entry of ``runs`` (its keyword arguments; a path
+    ``checkpoint`` is taken inside ``out_dir``), in turn. With ``stop_at``
+    = (scale index, iteration), rank 0's callback raises
+    ``KeyboardInterrupt`` at that iteration, as a user's Ctrl-C in the
+    one-device CLI does. Each rank saves ``run{j}_rank{r}.npz``: whether
+    ``stylize`` raised ``KeyboardInterrupt`` (``stopped``), the EMA's
+    bias-correction count and whole-image shape where it stopped (equal on
+    ranks that stopped after the same chunk), and on rank 0 the iterates'
+    (w, h, i) and losses."""
+    import torch.distributed as dist
+
+    from ..engine import StyleTransfer
+
+    content, style = _stylize_images()
+    st = StyleTransfer(mesh=mesh, weights=random_params(0), callback_chunk=5)
+    for j, kw in enumerate(runs):
+        kw = dict(kw)
+        stop_at = kw.pop("stop_at", None)
+        if kw.get("checkpoint"):
+            kw["checkpoint"] = str(Path(out_dir) / kw["checkpoint"])
+        its = []
+
+        def callback(it):
+            its.append(it)
+            scale = len({(i.w, i.h) for i in its}) - 1
+            if (scale, it.i) == stop_at:
+                raise KeyboardInterrupt
+
+        stopped = False
+        try:
+            st.stylize(content, [style], callback=callback if mesh.rank == 0 else None, **kw)
+        except KeyboardInterrupt:
+            stopped = True
+        # Rank 0's checkpoint is on disk once its stylize has returned; the
+        # next run's ranks each read it.
+        dist.barrier()
+        np.savez(Path(out_dir) / f"run{j}_rank{mesh.rank}.npz", stopped=stopped,
+                 accum=st.average.accum.cpu().numpy(),
+                 hw=np.array(st.get_image_tensor().shape),
+                 its=np.array([(i.w, i.h, i.i) for i in its]).reshape(-1, 3),
+                 losses=np.array([i.loss for i in its]))
 
 
 def fail_on_rank(mesh, rank):

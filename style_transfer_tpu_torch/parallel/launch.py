@@ -12,14 +12,23 @@ processes form one ``torch.distributed`` group:
 * every collective is bounded by the group's ``timeout``;
 * when a rank raises, it prints its error, the others are killed and
   :func:`launch` raises in turn; nothing is retried on fewer devices;
+* a Ctrl-C stops the run as it stops a one-device run, with the output
+  written: in a rank, SIGINT only sets the mesh's ``interrupt`` (a
+  ``KeyboardInterrupt`` at an arbitrary point would leave the rank in
+  another collective than its peers), and the ranks agree at a chunk end to
+  stop (``mesh.any_rank_stops``); the launcher passes a SIGINT on to the
+  ranks and goes on waiting for them;
 * CPU ranks share the host's cores: each takes ``cpu_count // world``
   threads.
 """
 
+import contextlib
 import datetime
 import os
+import signal
 import socket
 import sys
+import threading
 import traceback
 
 import torch
@@ -41,6 +50,8 @@ def _free_port() -> int:
 
 
 def _rank_main(rank, fn, devices, backend, port, timeout_s, args):
+    interrupt = threading.Event()
+    signal.signal(signal.SIGINT, lambda *_: interrupt.set())
     world = len(devices)
     device = devices[rank]
     if device.type == "cuda":
@@ -51,7 +62,7 @@ def _rank_main(rank, fn, devices, backend, port, timeout_s, args):
                             world_size=world, rank=rank,
                             timeout=datetime.timedelta(seconds=timeout_s))
     try:
-        fn(make_mesh(device), *args)
+        fn(make_mesh(device, interrupt), *args)
     except BaseException:
         # The launcher reports the first rank it finds failed, which may be
         # a peer that lost its connection: every rank prints its own error.
@@ -69,6 +80,8 @@ def launch(fn, devices, args=(), timeout_s: float = DEFAULT_TIMEOUT_S):
     module-level function), since the ranks start from a fresh interpreter.
     Raises ``torch.multiprocessing.ProcessRaisedException`` (or
     ``ProcessExitedException``) when a rank fails, after ending the others.
+    Called from the main thread, it passes each SIGINT on to the ranks
+    while it waits for them.
     """
     devices = [torch.device(d) for d in devices]
     devices = [torch.device("cuda", d.index or 0) if d.type == "cuda" else d
@@ -81,5 +94,22 @@ def launch(fn, devices, args=(), timeout_s: float = DEFAULT_TIMEOUT_S):
         from ..ops.cuda import build
 
         build.load()
-    mp.start_processes(_rank_main, nprocs=len(devices), join=True, start_method="spawn",
-                       args=(fn, devices, backend, _free_port(), timeout_s, tuple(args)))
+    ranks = []
+
+    def pass_on(signum, frame):
+        for proc in ranks:
+            with contextlib.suppress(ProcessLookupError):  # a rank that has ended
+                os.kill(proc.pid, signal.SIGINT)
+
+    main_thread = threading.current_thread() is threading.main_thread()
+    previous = signal.signal(signal.SIGINT, pass_on) if main_thread else None
+    try:
+        ctx = mp.start_processes(
+            _rank_main, nprocs=len(devices), join=False, start_method="spawn",
+            args=(fn, devices, backend, _free_port(), timeout_s, tuple(args)))
+        ranks.extend(ctx.processes)
+        while not ctx.join():
+            pass
+    finally:
+        if main_thread:
+            signal.signal(signal.SIGINT, signal.SIG_DFL if previous is None else previous)

@@ -20,7 +20,11 @@ partitioning is written out by hand:
   gradient back to the rank that owns those pixels;
 * :func:`all_reduce_sum` sums the statistics the losses need (moment sums,
   squared errors) over the ranks; every rank then holds the same values and
-  computes the same loss, so its backward is the identity.
+  computes the same loss, so its backward is the identity;
+* :func:`any_rank_stops` is the ranks' agreement to stop a run together: a
+  Ctrl-C reaches each rank at another point of its step, so it only sets
+  the rank's ``Mesh.interrupt``, and the engine asks at each chunk end
+  whether any rank wants to stop.
 
 A :class:`Mesh` placed on a canvas (:meth:`Mesh.on_canvas`) stands for the
 sharding of one image size, as a ``NamedSharding`` of an array does in JAX.
@@ -37,6 +41,7 @@ its collectives take CUDA tensors.
 
 import contextlib
 import math
+import threading
 import time
 from dataclasses import dataclass, field, replace
 from typing import Optional, Tuple
@@ -58,6 +63,7 @@ __all__ = [
     "halo_pad",
     "all_reduce_sum",
     "all_reduce_",
+    "any_rank_stops",
 ]
 
 # 2^(pools before the deepest tap): slab boundaries on multiples of this
@@ -102,7 +108,9 @@ class Mesh:
     """This rank's place in a (rows, cols) grid of ranks.
 
     ``canvas`` is the global (h, w) of the image the mesh is placed on, set
-    by :meth:`on_canvas`; the losses need it for their global counts."""
+    by :meth:`on_canvas`; the losses need it for their global counts.
+    ``interrupt`` is set when this process is asked to stop (the launcher
+    turns SIGINT into it); the mesh placed on a canvas shares it."""
 
     grid: Tuple[int, int]
     rank: int
@@ -110,6 +118,7 @@ class Mesh:
     backend: str = "gloo"
     canvas: Optional[Tuple[int, int]] = None
     stats: MeshStats = field(default_factory=MeshStats, compare=False)
+    interrupt: threading.Event = field(default_factory=threading.Event, compare=False)
 
     @property
     def world(self) -> int:
@@ -169,12 +178,14 @@ class Mesh:
                          f"belong to canvas {self.canvas} on this rank")
 
 
-def make_mesh(device) -> Mesh:
+def make_mesh(device, interrupt: Optional[threading.Event] = None) -> Mesh:
     """The mesh of the initialised (default) process group:
     ``factor_devices`` of its size, this process's rank, and ``device``
-    (this rank's own)."""
+    (this rank's own); ``interrupt`` is the event that asks this rank to
+    stop (a new one by default)."""
     return Mesh(grid=factor_devices(dist.get_world_size()), rank=dist.get_rank(),
-                device=torch.device(device), backend=dist.get_backend())
+                device=torch.device(device), backend=dist.get_backend(),
+                interrupt=threading.Event() if interrupt is None else interrupt)
 
 
 def _splits(n: int, parts: int):
@@ -250,6 +261,14 @@ def all_reduce_(x, mesh: Optional[Mesh], op: str = "sum"):
         with mesh._span("reduce"):
             dist.all_reduce(x, op=ops[op])
     return x
+
+
+def any_rank_stops(mesh: Mesh, here: bool) -> bool:
+    """Whether any rank asks to stop, ``here`` or by its ``interrupt``: one
+    all-reduce that every rank calls at the same point of the run, so every
+    rank gets the same answer and they all stop after the same chunk."""
+    flag = torch.tensor([float(here or mesh.interrupt.is_set())], device=mesh.device)
+    return bool(all_reduce_(flag, mesh, op="max").item())
 
 
 def _exchange(mesh: Mesh, to_prev, to_next, prev, nxt):

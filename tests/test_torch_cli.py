@@ -299,3 +299,36 @@ def test_get_image_tensor_fetches_once_per_chunk(content_pil, style_pil, monkeyp
     dev = st.get_image_device()
     assert dev.shape == (1, 36, 48, 3)
     np.testing.assert_array_equal(dev[0].numpy(), st.get_image_tensor())
+
+
+def test_proof_soft_proofs_the_inputs(files, monkeypatch):
+    """``--proof`` runs the src -> CMYK -> sRGB load path (ref cli.py:41-43)
+    with the committed hand-built CMYK profile: the inputs reach the engine
+    changed by the round trip, and the output is written with the sRGB
+    profile. Runs chdir'd into tmp_path, as the JAX test does."""
+    from pathlib import Path
+
+    from PIL import Image
+
+    from style_transfer_tpu_torch import io_color
+
+    argv, trace = files
+    monkeypatch.chdir(trace.parent)
+    proof = Path(__file__).resolve().parent / "golden" / "naive_cmyk.icc"
+    loaded = []
+    real = io_color.load_image
+
+    def load(path, proof_prof=None):
+        loaded.append((np.asarray(real(path)), np.asarray(real(path, proof_prof))))
+        return real(path, proof_prof)
+
+    monkeypatch.setattr(tcli, "load_image", load)
+    tcli.main(argv + ["--proof", str(proof), "--end-scale", "64", "--min-scale", "64",
+                      "-i", "2", "-ii", "2", "--callback-chunk", "2"])
+    assert len(loaded) == 2
+    for plain, proofed in loaded:
+        assert plain.shape == proofed.shape
+        assert np.abs(plain.astype(int) - proofed.astype(int)).max() > 0
+    with Image.open(trace.parent / "out.png") as img:
+        assert img.size == (64, 48) and img.info.get("icc_profile") == io_color.srgb_profile
+    assert [it["i"] for it in json.loads(trace.read_text())["iterates"]] == [1, 2]

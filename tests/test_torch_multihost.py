@@ -111,3 +111,82 @@ def test_sharded_cli_pyramid_and_checkpoints(tmp_path, content_pil, style_pil):
         assert [(it["w"], it["i"]) for it in its] == [(96, 1), (96, 2), (96, 3)]
         np.testing.assert_allclose(_losses(resumed), _losses(one)[3:], rtol=1e-5)
         np.testing.assert_allclose(_losses(resumed), _losses(two)[3:], rtol=1e-5)
+
+
+def test_an_interrupting_callback_stops_every_rank_after_the_same_chunk(tmp_path):
+    """One 2-rank launch runs the 64 -> 96 px pyramid three times: whole;
+    with checkpoints every 10 iterations and rank 0's callback raising
+    KeyboardInterrupt at iteration 10 of the second scale (chunks of 5); and
+    resumed from that checkpoint. Every rank leaves the interrupted
+    ``stylize`` after the same chunk, and the resumed losses equal the whole
+    run's from the resume point. A rank that went on alone would wait in a
+    collective until the group's 30 s timeout ended the launch."""
+    pyramid = dict(min_scale=64, end_scale=96, initial_iterations=5, iterations=15)
+    ck = dict(checkpoint="ck.npz", checkpoint_every=10)
+    runs = [pyramid, {**pyramid, **ck, "stop_at": (1, 10)},
+            {**pyramid, **ck, "resume": True}]
+    launch(checks.stylize_ranks, ["cpu", "cpu"], (runs, str(tmp_path)), timeout_s=30)
+    whole, cut, resumed = ([dict(np.load(tmp_path / f"run{j}_rank{r}.npz")) for r in range(2)]
+                           for j in range(3))
+    assert [r["stopped"] for r in cut] == [True, True]
+    assert not any(r["stopped"] for r in whole + resumed)
+    np.testing.assert_array_equal(cut[0]["accum"], cut[1]["accum"])
+    np.testing.assert_array_equal(cut[0]["hw"], cut[1]["hw"])
+    assert tuple(cut[0]["hw"]) == (72, 96, 3)
+    assert cut[0]["its"][-1].tolist() == [96, 72, 10]
+    # The chunk ended at iteration 10: the EMA counts the scale's 10 steps
+    # past its seed, as the whole run does there.
+    np.testing.assert_allclose(cut[0]["accum"], np.float32(0.99) ** 11, rtol=1e-6)
+    assert resumed[0]["its"].tolist() == [[96, 72, i] for i in range(11, 16)]
+    np.testing.assert_allclose(resumed[0]["losses"], whole[0]["losses"][-5:], rtol=1e-5)
+    np.testing.assert_allclose(cut[0]["losses"], whole[0]["losses"][:15], rtol=1e-5)
+
+
+def test_sigint_stops_a_sharded_cli_run_with_its_output(tmp_path, content_pil, style_pil):
+    """The CLI with ``--devices cpu cpu`` as a subprocess in its own session;
+    once its first checkpoint exists, SIGINT goes to its process group, as a
+    terminal's Ctrl-C does. It exits 0 within 60 s, with the output image
+    and ``trace.json`` (the ranks' report in it), its last iterate before
+    the end of the run."""
+    import os
+    import signal
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    content, style, weights = tmp_path / "c.png", tmp_path / "s.png", tmp_path / "w.npz"
+    content_pil.save(content)
+    style_pil.save(style)
+    np.savez(weights, **random_params(0))
+    out, trace, ck = tmp_path / "out.png", tmp_path / "trace.json", tmp_path / "ck.npz"
+    repo = Path(__file__).resolve().parent.parent
+    env = dict(os.environ, PYTHONPATH=str(repo))
+    argv = [sys.executable, "-m", "style_transfer_tpu_torch.cli", str(content), str(style),
+            "--devices", "cpu", "cpu", "--vgg-weights", str(weights), "--min-scale", "64",
+            "--end-scale", "96", "-ii", "10", "-i", "1000", "--callback-chunk", "5",
+            "--checkpoint", str(ck), "--checkpoint-every", "10", "-o", str(out),
+            "--trace", str(trace)]
+    proc = subprocess.Popen(argv, cwd=tmp_path, env=env, start_new_session=True,
+                            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+    try:
+        deadline = time.monotonic() + 300
+        while not ck.exists() and proc.poll() is None and time.monotonic() < deadline:
+            time.sleep(0.1)
+        assert ck.exists(), proc.stderr.read().decode() if proc.poll() is not None else ""
+        os.killpg(proc.pid, signal.SIGINT)
+        t0 = time.monotonic()
+        rc = proc.wait(timeout=60)
+        assert time.monotonic() - t0 < 60
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    err = proc.stderr.read().decode()
+    assert rc == 0, err
+    with Image.open(out) as img:
+        assert img.size == (96, 72)
+    t = json.loads(trace.read_text())
+    assert [r["rank"] for r in t["ranks"]] == [0, 1]
+    last = t["iterates"][-1]
+    assert (last["w"], last["h"]) == (96, 72) and last["i"] < last["i_max"] == 1000
+    assert last["i"] % 5 == 0  # the ranks stopped at a chunk's end
