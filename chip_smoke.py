@@ -38,10 +38,11 @@ each of which exits non-zero on failure:
    of B1;
 6. steady state of the step at 512x384 for (adam, trace), (adam, lyap),
    (lbfgs, lyap) and (lbfgs-zoom, trace) with the FP32 trunk, and (adam,
-   trace), (adam, lyap) with the bf16 trunk: ms/iter (and loss evaluations
-   per iteration for lbfgs-zoom), peak memory, and from ``torch.profiler``
-   the device's busy share, the NS kernels' time per iteration and the
-   costliest kernels;
+   trace), (adam, lyap) with the bf16 trunk, each step made by
+   ``style_transfer_tpu_torch.bench.build_step``: ms/iter (and loss
+   evaluations per iteration for lbfgs-zoom), peak memory, and from
+   ``tools/profile_step_torch.py`` the device's busy share, the NS kernels'
+   time per iteration and the costliest kernels;
 7. checkpoint/resume through the CLI: phases 4 and 5's pyramids once more
    (the spread of two runs under cuDNN's default algorithm choice, printed);
    then, under cuDNN's deterministic algorithms, each pyramid
@@ -121,10 +122,20 @@ each of which exits non-zero on failure:
     ``--style-weights 2 -1 1 --content-weight 0.15 --tv-weight 20``; 400
     B1 launches on each W2 leg. The weighted blend is one W2 target (the
     blended moments), so its loss is still a distance and falls as phase
-    4's does.
+    4's does;
+15. the measurement tools on the card: ``tools/bench_pyramid_torch.py``'s
+    ``run`` of the pyramid 128 -> 512 at the engine's iteration counts
+    (1000 + 4 x 500), with each scale's iterations, its phases plus
+    ``untimed`` equal to its wall within 0.05 s, 0 <= ``overhead_wall`` <
+    the wall, and 4 B1 launches per iteration; ``style_transfer_tpu_torch.
+    bench`` at 512x512 for (trace, f32), (trace, bf16) and (lyap, f32),
+    each printing its JSON line; ``tools/profile_step_torch.py``'s
+    ``profile`` at 512x384, its buckets summing to its device kernel time
+    within 1%.
 
 Everything but phase 9, the bf16 rows of phase 6, the bf16 output of
-phase 11 and the bf16 leg of phase 13 runs in FP32 (TF32 off for matmuls and cuDNN). The weights are the
+phase 11, the bf16 leg of phase 13 and the bf16 bench of phase 15 runs in
+FP32 (TF32 off for matmuls and cuDNN). The weights are the
 deterministic He-normal ``random_params(0)``. The last stdout line is ``{"ok": true, "device":
 {...}}``; the line before it lists the kernels, the one before that the
 card's name and power limit.
@@ -178,7 +189,7 @@ PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 SRC = "style_transfer_tpu_torch/csrc/ns_sqrtm.cu"
 PALLAS = "style_transfer_tpu/ops/pallas/ns_sqrtm.py"
-# Every kernel of csrc/ carries this prefix (profiler filter of phase 6).
+# Every kernel of csrc/ carries this prefix (the ptxas report's filter).
 KERNEL_PREFIX = "stt_nsk_"
 # name -> (products of 2C^3 per matrix that the inputs need, C x C matrices
 # read + written, the TPU kernel it replaces). NS's first iteration has no
@@ -550,51 +561,35 @@ def _gray_init_gradient_diff(content_path, style_path):
     return ((grads[0] - grads[1]).abs().max() / grads[1].abs().max()).item()
 
 
-def _steady_phase(content_path, style_path):
-    """Steady state of the step at 512x384 for each flavour of the path:
-    ms/iter over 20 iterations ended by one sync (after 3 warm-up), then
-    torch.profiler over 5 iterations for the device's busy share (summed
-    kernel time over the wall), the NS kernels' share of it and the five
+def _steady_phase():
+    """Steady state of the step at 512x384 for each flavour of the path, the
+    step and its inputs made by ``bench.build_step``: ms/iter over 20
+    iterations ended by one sync (after 3 warm-up), then
+    ``tools/profile_step_torch.py``'s profile of 5 iterations for the
+    device's busy share (summed kernel time over the wall of 5 iterations
+    run without the profiler), the NS kernels' share of it and the five
     costliest kernels."""
+    import profile_step_torch
     import torch
-    from PIL import Image
 
-    from style_transfer_tpu_torch import StyleTransfer
-    from style_transfer_tpu_torch import step as S
-    from style_transfer_tpu_torch.engine import _pil_to_nchw
-    from style_transfer_tpu_torch.models.weights import random_params
-    from style_transfer_tpu_torch.utils.ema import ema_init
+    from style_transfer_tpu_torch.bench import build_step
 
-    with Image.open(content_path) as c, Image.open(style_path) as s:
-        content_img, style_img = c.convert("RGB"), s.convert("RGB")
-    image = _pil_to_nchw(content_img, (512, 384), DEVICE)
-    cuda = torch.autograd.DeviceType.CUDA
-    st = None
+    device = torch.device(DEVICE)
     for optimizer, w2_grad, precision in (
             ("adam", "trace", "f32"), ("adam", "lyap", "f32"), ("lbfgs", "lyap", "f32"),
             ("lbfgs-zoom", "trace", "f32"),
             ("adam", "trace", "bf16"), ("adam", "lyap", "bf16")):
-        if st is None or st.compute_dtype != (torch.bfloat16 if precision == "bf16"
-                                              else None):
-            # One engine at a time, so each row's peak memory is its own.
-            st = None
-            st = StyleTransfer(device=DEVICE, weights=random_params(0),
-                               compute_dtype=precision)
-        cfg = S.StepConfig(w2_grad=w2_grad, compute_dtype=st.compute_dtype)
-        consts = st._capture_targets(image, [style_img], [1.0], 512, 1.0, None, cfg)
-        if optimizer == "adam":
-            run, opt = S.make_adam_runner(cfg), S.adam_init(image)
-        elif optimizer == "lbfgs":
-            run, opt = S.make_lbfgs_runner(cfg), S.lbfgs_init(image)
-        else:
-            run, opt = S.make_lbfgs_zoom_runner(cfg), S.zoom_lbfgs_init(image)
-        state = S.LoopState(image=image, opt=opt, ema=ema_init(image, cfg.avg_decay))
-        state, _ = run(st._step_params(), consts, state, 3)
+        # One step at a time, so each row's peak memory is its own.
+        run = params = consts = state = None
+        run, params, consts, state = build_step(
+            384, 512, device=device, optimizer=optimizer, w2_grad=w2_grad,
+            compute_dtype=precision)
+        state, _ = run(params, consts, state, 3)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         with _linesearch_counts() as counts:
             t0 = time.perf_counter()
-            state, losses = run(st._step_params(), consts, state, 20)
+            state, losses = run(params, consts, state, 20)
             torch.cuda.synchronize()
             ms_iter = (time.perf_counter() - t0) / 20 * 1e3
         peak = torch.cuda.max_memory_allocated() / 2**20
@@ -603,27 +598,16 @@ def _steady_phase(content_path, style_path):
         if not torch.isfinite(losses).all():
             raise AssertionError(
                 f"steady state ({optimizer}, {w2_grad}, {precision}): non-finite loss")
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            state, _ = run(st._step_params(), consts, state, 5)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        kernels = [e for e in prof.events() if e.device_type == cuda]
-        busy_us = sum(e.time_range.elapsed_us() for e in kernels)
-        ns_us = sum(e.time_range.elapsed_us() for e in kernels if KERNEL_PREFIX in e.name)
-        profiled = (f"busy share {busy_us / wall_us:.2f}, kernel time "
-                    f"{busy_us / 5e3:.2f} ms/iter of which NS kernels "
-                    f"{ns_us / 5e3:.2f} ms/iter" if kernels else
+        state, prof = profile_step_torch.profile_runner(run, params, consts, state, 5, device)
+        profiled = (f"busy share {prof['busy']:.2f}, kernel time "
+                    f"{prof['kernel_ms_per_iter']:.2f} ms/iter of which NS kernels "
+                    f"{prof['ns_ms_per_iter']:.2f} ms/iter" if prof else
                     "not measured (the profiler saw no device kernels)")
         print(f"steady state ({optimizer}, {w2_grad}, {precision}) at 512x384: "
               f"{ms_iter:.2f} ms/iter{evals}, peak memory {peak:.1f} MiB; "
               f"profiled: {profiled}")
-        by_name = {}
-        for e in kernels:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-        for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:5]:
-            print(f"    {us / 5e3:.3f} ms/iter  {name[:110]}")
+        for k in prof["top"][:5] if prof else ():
+            print(f"    {k['ms_per_iter']:.3f} ms/iter  {k['name'][:110]}")
 
 
 def _launch_counts():
@@ -1426,12 +1410,53 @@ def _configs_phase(tmp, content_path, style_path):
                    f"config-{label}", flags, expect, sizes)
 
 
+def _tools_phase():
+    """Phase 15 (see the module docstring)."""
+    import bench_pyramid_torch
+    import profile_step_torch
+
+    from style_transfer_tpu_torch import bench
+
+    _reset_launch_counts()
+    rec = bench_pyramid_torch.run(PYRAMID[-1][0], device=DEVICE, label="chip_smoke")
+    launches = _launch_counts()
+    print(f"bench_pyramid_torch {PYRAMID[-1][0]} (FP32): {json.dumps(rec)}")
+    iters = [s["iters"] for s in rec["scales"].values()]
+    timed = sum(rec["phases"].values()) + rec["untimed"]
+    print(f"  phases + untimed {timed:.2f} s against the wall {rec['value']:.2f} s; "
+          f"launches {launches}")
+    if list(rec["scales"]) != [f"{w}x{h}" for w, h in PYRAMID] or iters != [
+            1000] + [500] * (len(PYRAMID) - 1):
+        raise AssertionError(f"pyramid bench: scales and iterations {rec['scales']}")
+    if abs(timed - rec["value"]) > 0.05:
+        raise AssertionError("pyramid bench: phases + untimed differ from the wall")
+    if not 0 <= rec["overhead_wall"] < rec["value"]:
+        raise AssertionError(f"pyramid bench: overhead_wall {rec['overhead_wall']}")
+    if DEVICE != "cpu" and launches != {"ns_sqrtm_yz": 4 * sum(iters), "ns_sqrtm": 0,
+                                        "lyap_bwd": 0}:
+        raise AssertionError(f"pyramid bench: launches {launches}")
+
+    for precision, w2_grad in (("f32", "trace"), ("bf16", "trace"), ("f32", "lyap")):
+        bench.main(["--device", DEVICE, "--precision", precision, "--w2-grad", w2_grad])
+
+    prof = profile_step_torch.profile(384, 512, device=DEVICE)
+    if prof is None:
+        raise AssertionError("profile_step_torch: the profiler saw no device kernel")
+    total, summed = prof["kernel_ms_per_iter"], sum(prof["buckets"].values())
+    print(json.dumps({"profile": "384x512 f32", "kernel_ms_per_iter": total,
+                      "busy": prof["busy"], "buckets": prof["buckets"],
+                      "sources": prof["sources"][:15]}))
+    if abs(summed - total) > 0.01 * total:
+        raise AssertionError(f"profile: buckets sum to {summed} of {total} ms/iter")
+
+
 def main():
     if not (REPO / "style_transfer_tpu_torch" / "__init__.py").is_file():
         print("chip_smoke.py: style_transfer_tpu_torch not found beside this "
               "script; run it from a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, str(REPO))
+    sys.path.insert(0, str(REPO / "tools"))
     import torch
 
     if not torch.cuda.is_available():
@@ -1462,7 +1487,7 @@ def main():
             _cli_phase(tmp, content_path, style_path, "lbfgs-lyap",
                        ["--optimizer", "lbfgs", "--w2-grad", "lyap"], lyap_path)
             phase = "steady state of the step"
-            _steady_phase(content_path, style_path)
+            _steady_phase()
             phase = "checkpoint/resume through the CLI"
             _resume_phase(tmp, content_path, style_path)
             phase = "the web preview"
@@ -1479,6 +1504,8 @@ def main():
             _print_phase(tmp, content_path, style_path)
             phase = "configs #3 and #4"
             _configs_phase(tmp, content_path, style_path)
+            phase = "the measurement tools on the card"
+            _tools_phase()
     except Exception:
         traceback.print_exc()
         print(f"chip_smoke.py: FAILED in phase: {phase}", file=sys.stderr)

@@ -28,9 +28,18 @@ callbacks and writes checkpoints. An interrupt stops every rank after the
 same chunk: a ``KeyboardInterrupt`` from rank 0's callbacks or a Ctrl-C on
 any rank (``Mesh.interrupt``) is agreed on at the chunk's end, and every
 rank then raises ``KeyboardInterrupt`` out of ``stylize``.
+
+``stylize`` times each of its phases under the JAX engine's names
+(``phase_totals``): ``scale-entry@S``, ``targets@S`` (with the indented
+``  targets:*`` rows inside it), ``chunk1@SxN`` / ``chunk@SxN``,
+``ckpt-snapshot@S``, ``scale-exit@S`` and ``final-image``. On CUDA every
+phase but a chunk ends with a device synchronize, so its device work is
+billed to it and not to the next chunk; a chunk ends in its host read.
+With ``STT_DEBUG_TIMING`` set each phase's time is printed as it ends.
 """
 
 import math
+import os
 import time
 from pathlib import Path
 
@@ -61,7 +70,45 @@ from .utils.ema import EMAState, ema_get, ema_init
 from .utils.scales import align_size, gen_scales, shard_align_size, size_to_fit
 from .utils.trace import STIterate, peak_device_ram, reset_peak_device_ram
 
-__all__ = ["StyleTransfer", "tensor_to_image"]
+__all__ = ["StyleTransfer", "phase_totals", "tensor_to_image"]
+
+_DEBUG_TIMING = bool(os.environ.get("STT_DEBUG_TIMING"))
+
+# Cumulative seconds per phase name, always collected (one perf_counter pair
+# a phase); ``tools/bench_pyramid_torch.py`` attributes a run's
+# non-iterating wall to these phases and the rest to "untimed".
+_PHASE_TOTALS: dict = {}
+
+
+def phase_totals(reset: bool = False) -> dict:
+    """Snapshot {phase name: cumulative seconds}; optionally reset."""
+    out = dict(_PHASE_TOTALS)
+    if reset:
+        _PHASE_TOTALS.clear()
+    return out
+
+
+class _phase_timer:
+    """Accumulates a phase's wall time under ``name``; with a CUDA
+    ``device`` the phase ends with a synchronize of it, so the phase's
+    device work is inside its time. Prints the time when STT_DEBUG_TIMING
+    is set."""
+
+    def __init__(self, name, device=None):
+        self.name = name
+        self.sync = device is not None and device.type == "cuda"
+        self.device = device
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, exc_type, *exc):
+        if self.sync and exc_type is None:
+            torch.cuda.synchronize(self.device)
+        dur = time.perf_counter() - self.t0
+        _PHASE_TOTALS[self.name] = _PHASE_TOTALS.get(self.name, 0.0) + dur
+        if _DEBUG_TIMING:
+            print(f"[timing] {self.name}: {dur:.2f}s @{time.time():.2f}", flush=True)
 
 
 def _pil_to_nchw(image: Image.Image, size=None, device="cpu"):
@@ -323,9 +370,10 @@ class StyleTransfer:
         """Per-scale content/style targets (once per scale), with the trunk in
         the step's dtype; the statistics are FP32."""
         params = self._step_params()
-        content_feats = extract_features(
-            params, content, self.content_layers, pooling=self.pooling,
-            compute_dtype=cfg.compute_dtype, mesh=self._scale_mesh)
+        with _phase_timer("  targets:content-feats", self.device):
+            content_feats = extract_features(
+                params, content, self.content_layers, pooling=self.pooling,
+                compute_dtype=cfg.compute_dtype, mesh=self._scale_mesh)
         consts = {
             "content": {l: content_feats[l] for l in self.content_layers},
             "style": {},
@@ -338,30 +386,34 @@ class StyleTransfer:
                 sw, sh = size_to_fit(img.size, style_size)
             print(f"Processing style image ({sw}x{sh})...")
             style = _pil_to_nchw(img, (sw, sh), self.device)
-            feats = extract_features(
-                params, style, self.style_layers, pooling=self.pooling,
-                compute_dtype=cfg.compute_dtype)
+            with _phase_timer("  targets:style-stats", self.device):
+                feats = extract_features(
+                    params, style, self.style_layers, pooling=self.pooling,
+                    compute_dtype=cfg.compute_dtype)
+                for layer in self.style_layers:
+                    mean, srm = L.w2_moments(feats[layer])
+                    stats = (mean, srm) if cfg.style_loss == "w2" else (srm,)
+                    contrib = [s * wgt for s in stats]
+                    if layer not in blended:
+                        blended[layer] = contrib
+                    else:
+                        blended[layer] = [b + c for b, c in zip(blended[layer], contrib)]
+        with _phase_timer("  targets:finalize", self.device):
             for layer in self.style_layers:
-                mean, srm = L.w2_moments(feats[layer])
-                stats = (mean, srm) if cfg.style_loss == "w2" else (srm,)
-                contrib = [s * wgt for s in stats]
-                if layer not in blended:
-                    blended[layer] = contrib
+                if cfg.style_loss == "w2":
+                    mean, srm = blended[layer]
+                    consts["style"][layer] = L.w2_target(
+                        mean, srm, cfg.w2_eps, cfg.sqrtm_iters)
                 else:
-                    blended[layer] = [b + c for b, c in zip(blended[layer], contrib)]
-        for layer in self.style_layers:
-            if cfg.style_loss == "w2":
-                mean, srm = blended[layer]
-                consts["style"][layer] = L.w2_target(
-                    mean, srm, cfg.w2_eps, cfg.sqrtm_iters)
-            else:
-                consts["style"][layer] = blended[layer][0]
-            if self.mesh is not None:
-                # Every rank computes the targets from the same whole style
-                # image; rank 0's are taken, so the losses agree bit for bit.
-                t = consts["style"][layer]
-                consts["style"][layer] = (
-                    type(t)(*map(broadcast, t)) if isinstance(t, tuple) else broadcast(t))
+                    consts["style"][layer] = blended[layer][0]
+                if self.mesh is not None:
+                    # Every rank computes the targets from the same whole
+                    # style image; rank 0's are taken, so the losses agree
+                    # bit for bit.
+                    t = consts["style"][layer]
+                    consts["style"][layer] = (
+                        type(t)(*map(broadcast, t)) if isinstance(t, tuple)
+                        else broadcast(t))
         return consts
 
     # --------------------------------------------------------------- stylize
@@ -498,68 +550,79 @@ class StyleTransfer:
                         continue
                     resuming_here = (resume_state is not None
                                      and scale_idx == start_scale_idx)
-                    cw, ch = self.canvas(content_image.size, scale, align)
-                    self._scale_mesh = (None if self.mesh is None
-                                        else self.mesh.on_canvas(ch, cw))
-                    content = self._shard(_pil_to_nchw(content_image, (cw, ch), self.device))
-                    if resuming_here:
-                        self.image = self._shard(whole)
-                        self.average = EMAState(
-                            value=self._shard(
-                                _from_nhwc(resume_state["ema_value"], self.device)),
-                            accum=torch.from_numpy(
-                                np.array(resume_state["ema_accum"])).to(self.device),
-                        )
-                    else:
-                        self.image = self._shard(torch.clamp(
-                            _resize_image(whole, (ch, cw)), 0.0, 1.0))
-                        self.average = ema_init(self.image, avg_decay)
-                    self._publish(self.average)
+                    with _phase_timer(f"scale-entry@{scale}", self.device):
+                        cw, ch = self.canvas(content_image.size, scale, align)
+                        self._scale_mesh = (None if self.mesh is None
+                                            else self.mesh.on_canvas(ch, cw))
+                        content = self._shard(
+                            _pil_to_nchw(content_image, (cw, ch), self.device))
+                        if resuming_here:
+                            self.image = self._shard(whole)
+                            self.average = EMAState(
+                                value=self._shard(
+                                    _from_nhwc(resume_state["ema_value"], self.device)),
+                                accum=torch.from_numpy(
+                                    np.array(resume_state["ema_accum"])).to(self.device),
+                            )
+                        else:
+                            self.image = self._shard(torch.clamp(
+                                _resize_image(whole, (ch, cw)), 0.0, 1.0))
+                            self.average = ema_init(self.image, avg_decay)
+                        self._publish(self.average)
 
-                    cfg = StepConfig(
-                        content_layers=tuple(self.content_layers),
-                        style_layers=tuple(self.style_layers),
-                        content_weights=tuple(content_weights),
-                        style_layer_weights=tuple(self.style_layer_weights),
-                        tv_weight=tv_weight,
-                        style_loss=self.style_loss,
-                        content_loss=self.content_loss,
-                        w2_grad=self.w2_grad,
-                        pooling=self.pooling,
-                        step_size=step_size,
-                        avg_decay=avg_decay,
-                        compute_dtype=self.compute_dtype,
-                    )
-                    actual_its = initial_iterations if scale == scales[0] else iterations
+                        cfg = StepConfig(
+                            content_layers=tuple(self.content_layers),
+                            style_layers=tuple(self.style_layers),
+                            content_weights=tuple(content_weights),
+                            style_layer_weights=tuple(self.style_layer_weights),
+                            tv_weight=tv_weight,
+                            style_loss=self.style_loss,
+                            content_loss=self.content_loss,
+                            w2_grad=self.w2_grad,
+                            pooling=self.pooling,
+                            step_size=step_size,
+                            avg_decay=avg_decay,
+                            compute_dtype=self.compute_dtype,
+                        )
+                        actual_its = (initial_iterations if scale == scales[0]
+                                      else iterations)
 
                     print(f"Processing content image ({cw}x{ch})...")
-                    consts = self._capture_targets(
-                        content, style_images, style_weights, scale, style_scale_fac,
-                        style_size, cfg)
+                    with _phase_timer(f"targets@{scale}", self.device):
+                        consts = self._capture_targets(
+                            content, style_images, style_weights, scale, style_scale_fac,
+                            style_size, cfg)
                     self._last_cfg, self._last_consts = cfg, consts
 
-                    if resuming_here:
-                        opt_state = self._restored_opt(resume_state, optimizer)
-                    elif optimizer == "adam":
-                        opt_state = (adam_init(self.image) if opt_state is None
-                                     else AdamState(*map(self._shard, _scale_adam(
-                                         opt_state, (ch, cw))[:2]), opt_state.count))
-                    elif optimizer == "lbfgs":
-                        # A fresh state at every scale, as the JAX engine.
-                        opt_state = lbfgs_init(self.image)
-                    else:
-                        opt_state = zoom_lbfgs_init(self.image)
-                    runner = _RUNNERS[optimizer](cfg, self._scale_mesh)
-                    state = LoopState(image=self.image, opt=opt_state, ema=self.average)
+                    with _phase_timer(f"scale-entry@{scale}", self.device):
+                        if resuming_here:
+                            opt_state = self._restored_opt(resume_state, optimizer)
+                        elif optimizer == "adam":
+                            opt_state = (adam_init(self.image) if opt_state is None
+                                         else AdamState(*map(self._shard, _scale_adam(
+                                             opt_state, (ch, cw))[:2]), opt_state.count))
+                        elif optimizer == "lbfgs":
+                            # A fresh state at every scale, as the JAX engine.
+                            opt_state = lbfgs_init(self.image)
+                        else:
+                            opt_state = zoom_lbfgs_init(self.image)
+                        runner = _RUNNERS[optimizer](cfg, self._scale_mesh)
+                        state = LoopState(image=self.image, opt=opt_state, ema=self.average)
 
                     reset_peak_device_ram(self.device)
                     done = (min(resume_state["done_iters"], actual_its)
                             if resuming_here else 0)
                     t_prev = time.time()
+                    first_chunk = True
                     while done < actual_its:
                         n = min(self.callback_chunk, actual_its - done)
-                        state, losses_dev = runner(self._step_params(), consts, state, n)
-                        losses = losses_dev.cpu().numpy().astype(np.float64)  # one sync
+                        # A chunk's phase ends in its host read, which waits
+                        # for the chunk's device work.
+                        with _phase_timer(f"{'chunk1' if first_chunk else 'chunk'}"
+                                          f"@{scale}x{n}"):
+                            state, losses_dev = runner(self._step_params(), consts, state, n)
+                            losses = losses_dev.cpu().numpy().astype(np.float64)
+                        first_chunk = False
                         self.image, self.average = state.image, state.ema
                         self._publish(state.ema)
                         done += n
@@ -571,9 +634,10 @@ class StyleTransfer:
                         if checkpointing:
                             iters_since_ckpt += n
                             if iters_since_ckpt >= checkpoint_every or done >= actual_its:
-                                self._submit_checkpoint(
-                                    ckpt_writer, checkpoint, state, optimizer,
-                                    scale_idx, done, (cw, ch, scale))
+                                with _phase_timer(f"ckpt-snapshot@{scale}", self.device):
+                                    self._submit_checkpoint(
+                                        ckpt_writer, checkpoint, state, optimizer,
+                                        scale_idx, done, (cw, ch, scale))
                                 iters_since_ckpt = 0
                         stop = False
                         if callback is not None and self._is_rank0:
@@ -600,20 +664,22 @@ class StyleTransfer:
                     # Each new scale starts from the previous scale's averaged
                     # iterate (ref :495-497); Adam's moments are carried over
                     # whole, to be resized.
-                    opt_state = state.opt
-                    if optimizer == "adam":
-                        opt_state = AdamState(self._whole(opt_state.mu),
-                                              self._whole(opt_state.nu), opt_state.count)
-                    self.image = torch.clamp(ema_get(state.ema), 0.0, 1.0)
-                    self.average = state.ema
-                    whole = self._whole(self.image)
+                    with _phase_timer(f"scale-exit@{scale}", self.device):
+                        opt_state = state.opt
+                        if optimizer == "adam":
+                            opt_state = AdamState(self._whole(opt_state.mu),
+                                                  self._whole(opt_state.nu), opt_state.count)
+                        self.image = torch.clamp(ema_get(state.ema), 0.0, 1.0)
+                        self.average = state.ema
+                        whole = self._whole(self.image)
             finally:
                 if ckpt_writer is not None:
                     try:
                         ckpt_writer.close()
                     except Exception as err:
                         print(f"Warning: checkpoint write failed: {err}")
-        return self.get_image()
+        with _phase_timer("final-image"):
+            return self.get_image()
 
     def _submit_checkpoint(self, writer, path, state, optimizer, scale_idx, done,
                            geometry):
