@@ -15,7 +15,10 @@ each of which exits non-zero on failure:
    events beside the kernel's bound (the larger of 3x its FP32 FLOP over the
    TF32 tensor-core peak, the 3xTF32 route, and its bytes over the memory
    rate; the FP32-FMA bound of earlier reports is printed beside it);
-   single-pass TF32's error on the plain chain is printed, not checked:
+   single-pass TF32's error on the plain chain is printed, not checked;
+   and each kernel captured alone into a CUDA graph and replayed must equal
+   its eager launch bit for bit at every shape (C = 64, 100, 128, 200, 256,
+   300, 512: both regimes):
    - the coupled NS kernel (B1): tr(Y) to rtol 1e-4, Z to 1e-3 of max|Z|,
      the trace autograd gradient to 1e-3 of its max;
    - the NS forward kernel (B2): Y to 1e-4 of max|Y|;
@@ -131,7 +134,25 @@ each of which exits non-zero on failure:
     bench`` at 512x512 for (trace, f32), (trace, bf16) and (lyap, f32),
     each printing its JSON line; ``tools/profile_step_torch.py``'s
     ``profile`` at 512x384, its buckets summing to its device kernel time
-    within 1%.
+    within 1%;
+16. graph against eager: (adam, trace), (adam, lyap) and (lbfgs, lyap) in
+    FP32 and (adam, trace) in bf16, at 128x96, 512x384 and 1448x1086, each
+    step made by ``bench.build_step`` and run 20 iterations (a chunk of 5,
+    then a timed chunk of 15) by the graph runner and by the eager runner
+    (``eager=True``) from the same state (for L-BFGS the gray init, as in
+    phase 3): under cuDNN's default algorithms the losses within rtol 1e-3
+    (for L-BFGS over its first 10 iterations, ``LBFGS_DETERMINED``; every
+    difference printed beside two eager runs' own), then under its
+    deterministic algorithms (a graph captured under them) losses and final
+    image bit-identical; ms/iter of each, the graph runner's busy share
+    (``profile_step_torch.profile_runner``), its capture and instantiate
+    time, peak memory of each and kernel launches per iteration (equal).
+
+On the card the engine, ``bench.build_step`` and the tools run Adam and the
+reference L-BFGS as replays of one CUDA graph of the step per scale
+(``step._Runner``); lbfgs-zoom and the sharded runs stay eager. A kernel
+launch inside a graph counts once per replay, so every launch check above
+counts the iterations that ran, as with the eager runner.
 
 Everything but phase 9, the bf16 rows of phase 6, the bf16 output of
 phase 11, the bf16 leg of phase 13 and the bf16 bench of phase 15 runs in
@@ -308,6 +329,25 @@ def _check(name, err, limit, what):
         raise AssertionError(f"{name}: {what} {err:.3g} (limit {limit})")
 
 
+def _graph_replay_equal(fn):
+    """Whether ``fn()``'s kernel launch, captured alone into a CUDA graph on
+    a side stream and replayed, gives outputs equal bit for bit to the
+    eager launch of ``fn()`` (made first, which also does the kernel's
+    one-time setup outside the capture)."""
+    import torch
+
+    eager = fn()
+    graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.graph(graph, stream=stream):
+        out = fn()
+    for t in out:
+        t.fill_(float("nan"))  # the capture ran nothing; the replay must write them
+    graph.replay()
+    torch.cuda.synchronize()
+    return all(torch.equal(a, b) for a, b in zip(eager, out))
+
+
 def _kernel_phase():
     import torch
 
@@ -434,6 +474,16 @@ def _kernel_phase():
         ms, plain_ms = _time_pair(lambda: K.lyap_bwd(py2, g_path, ITERS),
                                   lambda: K.lyap_bwd_plain(py2, g_path, ITERS))
         record("lyap_bwd", name, a, ms, plain_ms, q_abs, on_path)
+
+        # The graph leg: each kernel captured alone into a CUDA graph and
+        # replayed, bit for bit its eager launch (the cluster regime's launch
+        # attribute included).
+        same = {"ns_sqrtm_yz": _graph_replay_equal(lambda: K.ns_sqrtm_yz(a, ITERS)),
+                "ns_sqrtm": _graph_replay_equal(lambda: (K.ns_sqrtm(a, ITERS),)),
+                "lyap_bwd": _graph_replay_equal(lambda: (K.lyap_bwd(py2, g_rand, ITERS),))}
+        print(f"graph replay against eager launch at {name}, bit-identical: {same}")
+        if not all(same.values()):
+            raise AssertionError(f"{name}: a graph replay differs from its eager launch")
 
     for kname, st in stats.items():
         print(f"{kname} per step (the four groups): kernel {st['ms']:.4f} ms, plain "
@@ -599,7 +649,8 @@ def _steady_phase():
             raise AssertionError(
                 f"steady state ({optimizer}, {w2_grad}, {precision}): non-finite loss")
         state, prof = profile_step_torch.profile_runner(run, params, consts, state, 5, device)
-        profiled = (f"busy share {prof['busy']:.2f}, kernel time "
+        profiled = (f"busy share {prof['busy']:.2f} ({prof['busy_profiled']:.2f} of the "
+                    f"profiled run's wall), kernel time "
                     f"{prof['kernel_ms_per_iter']:.2f} ms/iter of which NS kernels "
                     f"{prof['ns_ms_per_iter']:.2f} ms/iter" if prof else
                     "not measured (the profiler saw no device kernels)")
@@ -1450,6 +1501,120 @@ def _tools_phase():
         raise AssertionError(f"profile: buckets sum to {summed} of {total} ms/iter")
 
 
+GRAPH_SIZES = [(96, 128), (384, 512), BIG_CANVAS[::-1]]  # (h, w)
+GRAPH_ITERS = 20
+# Under cuDNN's default algorithms two eager runs of the reference L-BFGS
+# part as its trajectory magnifies the algorithms' rounding. From a noisy
+# init (bench.build_step's uniform draw) its first step is tiny, so the
+# first curvature pair's y = g1 - g0 and h_diag = ys / yy carry that
+# rounding (ROADMAP C): two eager runs can part by more than CPU_RTOL
+# within 10 iterations (tools/lbfgs_determinacy_torch.py). Its leg
+# therefore starts from the gray init, as phases 3 and 12 and the engine
+# tests do, where the trajectory is determined for about 12 iterations;
+# the bar covers the first 10 (the horizon of phases 3 and 12) and the
+# deterministic leg holds all 20 bit for bit.
+LBFGS_DETERMINED = 10
+
+
+def _run_timed(run, params, consts, state):
+    """GRAPH_ITERS iterations as a chunk of 5 (a graph runner's warm-up
+    iteration and capture in it) and a timed chunk of the rest. Returns
+    (final state, losses as float64, ms/iter of the timed chunk, peak MiB,
+    launches per iteration of the timed chunk)."""
+    import numpy as np
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, first = run(params, consts, state, 5)
+    first = first.cpu()
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    state, rest = run(params, consts, state, GRAPH_ITERS - 5)
+    rest = rest.cpu()
+    ms = (time.perf_counter() - t0) / (GRAPH_ITERS - 5) * 1e3
+    per_iter = {k: v / (GRAPH_ITERS - 5) for k, v in _launch_counts().items()}
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    losses = torch.cat([first, rest]).numpy().astype(np.float64)
+    return state, losses, ms, peak, per_iter
+
+
+def _graph_phase():
+    """Phase 16 (see the module docstring)."""
+    import numpy as np
+    import profile_step_torch
+    import torch
+    from lbfgs_determinacy_torch import gray_start
+
+    from style_transfer_tpu_torch import step as S
+    from style_transfer_tpu_torch.bench import build_step
+
+    device = torch.device(DEVICE)
+    makers = {"adam": S.make_adam_runner, "lbfgs": S.make_lbfgs_runner}
+    for optimizer, w2_grad, precision in (("adam", "trace", "f32"), ("adam", "lyap", "f32"),
+                                          ("lbfgs", "lyap", "f32"),
+                                          ("adam", "trace", "bf16")):
+        for h, w in GRAPH_SIZES:
+            label = f"({optimizer}, {w2_grad}, {precision}) at {w}x{h}"
+            graph = params = consts = state0 = None
+            graph, params, consts, state0 = build_step(
+                h, w, device=device, optimizer=optimizer, w2_grad=w2_grad,
+                compute_dtype=precision)
+            if optimizer == "lbfgs":
+                state0 = gray_start(state0)
+            make = makers[optimizer]
+            eager = make(graph.cfg, eager=True)
+            # cuDNN's default algorithms: agreement within CPU_RTOL, timings.
+            g_state, g_loss, g_ms, g_peak, g_launch = _run_timed(graph, params, consts, state0)
+            e_state, e_loss, e_ms, e_peak, e_launch = _run_timed(eager, params, consts, state0)
+            _, e2_loss, _, _, _ = _run_timed(eager, params, consts, state0)
+            capture = graph.run.capture_seconds
+            capture = "none (eager)" if capture is None else f"{capture:.3f} s"
+            rel_all = np.abs(g_loss - e_loss) / np.abs(e_loss)
+            held = LBFGS_DETERMINED if optimizer == "lbfgs" else GRAPH_ITERS
+            rel = float(rel_all[:held].max())
+            spread_all = np.abs(e2_loss - e_loss) / np.abs(e_loss)
+            spread = float(spread_all.max())
+            img = (g_state.image - e_state.image).abs().max().item()
+            _, prof = profile_step_torch.profile_runner(graph, params, consts, g_state, 5,
+                                                        device)
+            busy = (f"{prof['busy']:.2f} ({prof['busy_profiled']:.2f} of the profiled "
+                    "run's wall)" if prof else "not measured")
+            g_state = e_state = None
+            # cuDNN's deterministic algorithms: bit for bit, a graph captured
+            # under them against the eager runner under them.
+            torch.backends.cudnn.deterministic = True
+            try:
+                det = make(graph.cfg)
+                d_state, d_loss, _, _, _ = _run_timed(det, params, consts, state0)
+                x_state, x_loss, _, _, _ = _run_timed(eager, params, consts, state0)
+            finally:
+                torch.backends.cudnn.deterministic = False
+            same = bool((d_loss == x_loss).all()) and torch.equal(d_state.image, x_state.image)
+            print(f"graph against eager {label}: ms/iter graph {g_ms:.2f}, eager {e_ms:.2f} "
+                  f"(x{e_ms / g_ms:.2f}); busy share of the graph runner {busy}; capture "
+                  f"and instantiate {capture}; peak MiB graph {g_peak:.1f}, eager "
+                  f"{e_peak:.1f}; launches per iteration graph {g_launch}, eager "
+                  f"{e_launch}; default algorithms: max rel loss diff {rel:.2e} over "
+                  f"iterations 1-{held} (limit {CPU_RTOL}), {rel_all.max():.2e} over all "
+                  f"{GRAPH_ITERS}, two eager runs {spread:.2e}, image max diff {img:.2e}; "
+                  f"deterministic: bit-identical losses and image {same}")
+            if optimizer == "lbfgs":
+                print("  rel loss diff per iteration, graph against eager: "
+                      + " ".join(f"{r:.1e}" for r in rel_all))
+                print("  rel loss diff per iteration, eager against eager: "
+                      + " ".join(f"{r:.1e}" for r in spread_all))
+            if not rel <= CPU_RTOL:
+                raise AssertionError(f"{label}: graph and eager losses disagree")
+            if not same:
+                raise AssertionError(f"{label}: not bit-identical under deterministic cuDNN")
+            if g_launch != e_launch:
+                raise AssertionError(f"{label}: launches per iteration differ")
+            if not np.isfinite(g_loss).all():
+                raise AssertionError(f"{label}: non-finite loss")
+            graph = eager = det = d_state = x_state = None
+
+
 def main():
     if not (REPO / "style_transfer_tpu_torch" / "__init__.py").is_file():
         print("chip_smoke.py: style_transfer_tpu_torch not found beside this "
@@ -1506,6 +1671,8 @@ def main():
             _configs_phase(tmp, content_path, style_path)
             phase = "the measurement tools on the card"
             _tools_phase()
+            phase = "graph against eager"
+            _graph_phase()
     except Exception:
         traceback.print_exc()
         print(f"chip_smoke.py: FAILED in phase: {phase}", file=sys.stderr)

@@ -61,17 +61,22 @@ def _nchw(arr, device):
 
 
 def build_step(h, w, *, device="cuda:0", w2_grad="trace", compute_dtype="auto",
-               optimizer="adam", seed=0, **cfg_kw):
+               optimizer="adam", seed=0, eager=False, **cfg_kw):
     """The step at (h, w) and its inputs, as ``__graft_entry__._build``
     makes them: a ``RandomState(seed)`` image and content of (h, w) and a
     64x64 style (drawn in that order, NHWC), ``random_params(0)``, the
     content features at the content layers and a ``w2_target`` per style
     layer, the optimizer's initial state and an EMA of decay 0.99.
     ``cfg_kw`` goes to ``StepConfig``. The runner runs with TF32 off, as
-    ``stylize`` does.
+    ``stylize`` does, and is the one the engine takes on ``device``: on the
+    card, Adam and L-BFGS replay a CUDA graph of the step (``eager=True``
+    runs the same body eagerly, for a comparison).
 
     Returns ``(runner, params, consts, state)``; ``runner(params, consts,
-    state, n)`` runs n iterations and returns ``(state, losses)``."""
+    state, n)`` runs n iterations and returns ``(state, losses)``, writing
+    its own buffers (it never writes the ``state`` given); ``runner.run`` is
+    the step's runner (its ``capture_seconds``) and ``runner.cfg`` its
+    ``StepConfig``."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {str(device)!r} requested but CUDA is not available")
@@ -98,12 +103,13 @@ def build_step(h, w, *, device="cuda:0", w2_grad="trace", compute_dtype="auto",
                                    if cfg.style_loss == "w2" else srm)
     consts = {"content": {l: cf[l] for l in cfg.content_layers}, "style": style_consts}
     state = LoopState(image=image, opt=opt_init(image), ema=ema_init(image, 0.99))
-    run = make_runner(cfg)
+    run = make_runner(cfg, eager=eager)
 
     def runner(params, consts, state, n_steps):
         with fp32_math(device):
             return run(params, consts, state, n_steps)
 
+    runner.run, runner.cfg = run, cfg
     return runner, params, consts, state
 
 

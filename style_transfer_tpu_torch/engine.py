@@ -32,10 +32,20 @@ rank then raises ``KeyboardInterrupt`` out of ``stylize``.
 ``stylize`` times each of its phases under the JAX engine's names
 (``phase_totals``): ``scale-entry@S``, ``targets@S`` (with the indented
 ``  targets:*`` rows inside it), ``chunk1@SxN`` / ``chunk@SxN``,
-``ckpt-snapshot@S``, ``scale-exit@S`` and ``final-image``. On CUDA every
-phase but a chunk ends with a device synchronize, so its device work is
-billed to it and not to the next chunk; a chunk ends in its host read.
-With ``STT_DEBUG_TIMING`` set each phase's time is printed as it ends.
+``ckpt-snapshot@S``, ``scale-exit@S`` and ``final-image``, with the
+indented ``  capture@S`` row inside the chunk that captured the scale's
+CUDA graph (its capture and instantiation). On CUDA every phase but a
+chunk ends with a device synchronize, so its device work is billed to it
+and not to the next chunk; a chunk ends in its host read. With
+``STT_DEBUG_TIMING`` set each phase's time is printed as it ends.
+
+The runners (``step.py``) write the state's tensors in place, and on the
+card replay one CUDA graph per scale over them, so the engine copies what
+must outlive a chunk: the checkpoint snapshot is copied on the device at
+submit, and the memoized host image is keyed on a count of chunks, not on
+the EMA state (the same tensors every chunk). At a scale's end it reads
+the final state, then drops the runner, its buffers, its graph and the
+graph's memory pool before the next scale allocates.
 """
 
 import math
@@ -105,10 +115,13 @@ class _phase_timer:
     def __exit__(self, exc_type, *exc):
         if self.sync and exc_type is None:
             torch.cuda.synchronize(self.device)
-        dur = time.perf_counter() - self.t0
-        _PHASE_TOTALS[self.name] = _PHASE_TOTALS.get(self.name, 0.0) + dur
-        if _DEBUG_TIMING:
-            print(f"[timing] {self.name}: {dur:.2f}s @{time.time():.2f}", flush=True)
+        _add_phase(self.name, time.perf_counter() - self.t0)
+
+
+def _add_phase(name, dur):
+    _PHASE_TOTALS[name] = _PHASE_TOTALS.get(name, 0.0) + dur
+    if _DEBUG_TIMING:
+        print(f"[timing] {name}: {dur:.2f}s @{time.time():.2f}", flush=True)
 
 
 def _pil_to_nchw(image: Image.Image, size=None, device="cpu"):
@@ -138,7 +151,7 @@ def _scale_adam(opt: AdamState, hw) -> AdamState:
 
 def _to_nhwc(x):
     """NCHW (or (m, N, C, H, W)) tensor -> the checkpoint's channels-last
-    layout, as a view: the copy happens at the writer's host fetch."""
+    layout, as a view."""
     return x.movedim(-3, -1)
 
 
@@ -229,9 +242,12 @@ class StyleTransfer:
         self.average = None  # EMAState
         self._last_cfg = self._last_consts = None
         self._rng = np.random.RandomState(0)
-        self._img_cache_key = None  # the EMAState the cached host image is of
+        # The averaged iterate's version, one more each time ``average`` is
+        # set (every chunk), and the version the cached host image is of.
+        self._avg_version = 0
+        self._img_cache_key = None
         self._img_cache = None
-        self._whole_avg = None  # under a mesh: the EMA's whole image (_publish)
+        self._whole_avg = None  # under a mesh: the EMA's whole image (_set_average)
 
     # ------------------------------------------------------------------ API
 
@@ -241,15 +257,16 @@ class StyleTransfer:
     def get_image_tensor(self):
         """Current averaged iterate as an (H, W, 3) f32 ndarray in [0, 1].
 
-        Memoized on the EMA state object: the state changes once per chunk
-        but callbacks run per iteration, so the device is read once a chunk
-        however many callbacks (the web preview's feed) ask."""
+        Memoized per chunk: the state changes once per chunk but callbacks
+        run per iteration, so the device is read once a chunk however many
+        callbacks (the web preview's feed) ask. The key is the chunk's
+        version, not the EMA state, whose tensors the runners reuse."""
         if self.average is None:
             return None
-        if self._img_cache_key is not self.average:
+        if self._img_cache_key != self._avg_version:
             img = self._avg_image()[0].permute(1, 2, 0)
             self._img_cache = np.clip(img.detach().cpu().numpy(), 0.0, 1.0)
-            self._img_cache_key = self.average
+            self._img_cache_key = self._avg_version
         return self._img_cache
 
     def get_image_device(self):
@@ -310,10 +327,13 @@ class StyleTransfer:
             return broadcast(x)
         return gather_image(x, self._scale_mesh)
 
-    def _publish(self, ema):
-        """Under a mesh, gathers the averaged iterate's whole image for
-        ``get_image*`` (every rank, at each chunk's end: the callbacks run
+    def _set_average(self, ema):
+        """Sets the averaged iterate that ``get_image*`` read (at a scale's
+        entry and each chunk's end), a new version of it, and publishes it:
+        under a mesh every rank gathers its whole image (the callbacks run
         on rank 0 only and cannot call a collective)."""
+        self.average = ema
+        self._avg_version += 1
         if self.mesh is not None:
             self._whole_avg = self._whole(ema_get(ema))
 
@@ -529,10 +549,10 @@ class StyleTransfer:
 
             # Checkpoints are written on a background thread, every
             # ``checkpoint_every`` iterations and at every scale end. The
-            # snapshot holds the chunk's own tensors, no copies: the runners
-            # build new tensors every step and never write one in place, so
-            # what the writer fetches is the state of the snapshot's
-            # iteration even while the next chunks run.
+            # runners write the state's tensors in place, so the snapshot
+            # is a copy made on the device at submit: what the writer
+            # fetches is the state of the snapshot's iteration even while
+            # the next chunks run.
             if checkpoint is not None and optimizer == "lbfgs-zoom":
                 print(
                     "Warning: --checkpoint supports the adam and lbfgs "
@@ -558,17 +578,16 @@ class StyleTransfer:
                             _pil_to_nchw(content_image, (cw, ch), self.device))
                         if resuming_here:
                             self.image = self._shard(whole)
-                            self.average = EMAState(
+                            self._set_average(EMAState(
                                 value=self._shard(
                                     _from_nhwc(resume_state["ema_value"], self.device)),
                                 accum=torch.from_numpy(
                                     np.array(resume_state["ema_accum"])).to(self.device),
-                            )
+                            ))
                         else:
                             self.image = self._shard(torch.clamp(
                                 _resize_image(whole, (ch, cw)), 0.0, 1.0))
-                            self.average = ema_init(self.image, avg_decay)
-                        self._publish(self.average)
+                            self._set_average(ema_init(self.image, avg_decay))
 
                         cfg = StepConfig(
                             content_layers=tuple(self.content_layers),
@@ -607,7 +626,11 @@ class StyleTransfer:
                         else:
                             opt_state = zoom_lbfgs_init(self.image)
                         runner = _RUNNERS[optimizer](cfg, self._scale_mesh)
+                        # The runner copies the state into buffers of its own
+                        # (and hands those back): the engine's optimizer
+                        # state is not needed past this point.
                         state = LoopState(image=self.image, opt=opt_state, ema=self.average)
+                        opt_state = None
 
                     reset_peak_device_ram(self.device)
                     done = (min(resume_state["done_iters"], actual_its)
@@ -623,8 +646,8 @@ class StyleTransfer:
                             state, losses_dev = runner(self._step_params(), consts, state, n)
                             losses = losses_dev.cpu().numpy().astype(np.float64)
                         first_chunk = False
-                        self.image, self.average = state.image, state.ema
-                        self._publish(state.ema)
+                        self.image = state.image
+                        self._set_average(state.ema)
                         done += n
                         t_now = time.time()
                         # The snapshot goes to the writer BEFORE the
@@ -661,17 +684,21 @@ class StyleTransfer:
                         if self.mesh is not None and any_rank_stops(self.mesh, stop):
                             raise KeyboardInterrupt
 
+                    if runner.capture_seconds is not None:
+                        _add_phase(f"  capture@{scale}", runner.capture_seconds)
                     # Each new scale starts from the previous scale's averaged
                     # iterate (ref :495-497); Adam's moments are carried over
-                    # whole, to be resized.
+                    # whole, to be resized. Then the runner, its graph and
+                    # the buffers no longer needed go.
                     with _phase_timer(f"scale-exit@{scale}", self.device):
-                        opt_state = state.opt
+                        opt_state = None
                         if optimizer == "adam":
-                            opt_state = AdamState(self._whole(opt_state.mu),
-                                                  self._whole(opt_state.nu), opt_state.count)
+                            opt_state = AdamState(self._whole(state.opt.mu),
+                                                  self._whole(state.opt.nu), state.opt.count)
                         self.image = torch.clamp(ema_get(state.ema), 0.0, 1.0)
                         self.average = state.ema
                         whole = self._whole(self.image)
+                        runner = state = None
             finally:
                 if ckpt_writer is not None:
                     try:
@@ -683,21 +710,28 @@ class StyleTransfer:
 
     def _submit_checkpoint(self, writer, path, state, optimizer, scale_idx, done,
                            geometry):
-        """Hands the chunk's state to the writer thread in the checkpoint's
-        channels-last layout (views; the writer fetches and copies). Under a
+        """Hands a copy of the chunk's state, made on the device in the
+        checkpoint's channels-last layout, to the writer thread, which
+        fetches it while the next chunks write the state in place. Under a
         mesh every rank gathers the whole state and rank 0, the only one
         with a writer, submits it."""
         whole = self._whole
         if optimizer == "adam":
-            opt = {"adam": AdamState(mu=_to_nhwc(whole(state.opt.mu)),
-                                     nu=_to_nhwc(whole(state.opt.nu)),
+            opt = {"adam": AdamState(mu=whole(state.opt.mu), nu=whole(state.opt.nu),
                                      count=state.opt.count)}
         else:
-            opt = {"lbfgs": LBFGSState(*(_to_nhwc(whole(f)) if f.ndim >= 4 else f
+            opt = {"lbfgs": LBFGSState(*(whole(f) if f.ndim >= 4 else f
                                          for f in state.opt))}
         image, ema_value = whole(state.image), whole(state.ema.value)
         if writer is None:
             return
+
+        def snap(x):
+            if not isinstance(x, torch.Tensor):
+                return x
+            return _to_nhwc(x).contiguous() if x.ndim >= 4 else x.clone()
+
+        opt = {k: type(v)(*map(snap, v)) for k, v in opt.items()}
         if writer.error is not None:
             print(f"Warning: checkpoint write failed: {writer.error}")
             writer.error = None
@@ -706,8 +740,8 @@ class StyleTransfer:
         rng.set_state(self._rng.get_state())  # a copy: the live one may advance
         writer.submit(
             path,
-            image=_to_nhwc(image),
-            ema=EMAState(value=_to_nhwc(ema_value), accum=state.ema.accum),
+            image=snap(image),
+            ema=EMAState(value=snap(ema_value), accum=snap(state.ema.accum)),
             scale_index=scale_idx,
             done_iters=done,
             meta={"w": cw, "h": ch, "scale": scale, "transposed": False},

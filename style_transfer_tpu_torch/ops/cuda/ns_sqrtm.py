@@ -14,7 +14,9 @@ by :func:`matmul_tf32x3` for the tests):
 
 Each wrapper dispatches on the tensor's device alone: a CPU tensor takes the
 plain version (``ops/sqrtm.py``); a CUDA tensor launches the kernel or
-raises. ``<wrapper>.launches`` counts the kernel launches.
+raises. ``<wrapper>.launches`` counts the kernel launches; a launch
+recorded into a CUDA graph counts once per replay of the graph, which the
+graph's runner adds (:func:`launch_counts`, :func:`add_launches`).
 :class:`TraceSqrtmNS` gives ``tr(Y)`` with the backward ½·g·Z outside the
 kernel; :class:`SqrtmNSLyap` gives the full square root with the Lyapunov
 kernel as its backward, as the JAX package computes them.
@@ -33,6 +35,7 @@ __all__ = [
     "ns_sqrtm", "ns_sqrtm_plain", "lyap_bwd", "lyap_bwd_plain",
     "SqrtmNSLyap", "sqrtm_ns_lyap", "tf32_round", "matmul_tf32x3",
     "ns_first_iteration", "ns_sqrtm_yz_tf32x3", "lyap_bwd_tf32x3",
+    "launch_counts", "add_launches",
 ]
 
 
@@ -235,6 +238,20 @@ def lyap_bwd(z, g, num_iters: int = 12):
 
 
 lyap_bwd.launches = 0
+
+
+def launch_counts():
+    """The launch counts of B1, B2 and B3 (``ns_sqrtm_yz``, ``ns_sqrtm``,
+    ``lyap_bwd``)."""
+    return (ns_sqrtm_yz.launches, ns_sqrtm.launches, lyap_bwd.launches)
+
+
+def add_launches(counts, times: int = 1):
+    """Adds ``times`` x ``counts`` (as :func:`launch_counts` orders them)
+    to the launch counts: a graph's runner adds what its capture recorded
+    once per replay, and takes back the capture's own, which ran nothing."""
+    for fn, c in zip((ns_sqrtm_yz, ns_sqrtm, lyap_bwd), counts):
+        fn.launches += times * c
 
 
 class TraceSqrtmNS(torch.autograd.Function):

@@ -9,14 +9,20 @@ call), content MSE and TV. With ``w2_grad='trace'`` the square-root term is
 backward; with ``'lyap'`` (the reference's own gradient) it is the full NS
 square root with the iterative Lyapunov backward, both kernels.
 
-The runners are eager loops in the reference's order that keep the
-per-iteration losses on the device and leave the sync to the caller, once
-per chunk: Adam is gradient (image only), Adam, clamp to [0, 1], EMA; L-BFGS
-is gradient, a fixed-step L-BFGS update with no clamp, EMA; L-BFGS with the
-zoom line search is gradient, the L-BFGS direction and a line search along
-it (which reads each trial's value and slope to the host), no clamp, EMA.
+Each runner runs one in-place step body in the reference's order, keeps
+the per-iteration losses on the device and leaves the sync to the caller,
+once per chunk: Adam is gradient (image only), Adam, clamp to [0, 1], EMA;
+L-BFGS is gradient, a fixed-step L-BFGS update with no clamp, EMA; L-BFGS
+with the zoom line search is gradient, the L-BFGS direction and a line
+search along it (which reads each trial's value and slope to the host), no
+clamp, EMA. On the card, Adam and L-BFGS run each iteration as a replay of
+a CUDA graph captured once per runner (once per scale in the engine;
+:class:`_Runner`), the port of the JAX runners' compiled chunk; elsewhere
+the body runs eagerly.
 """
 
+import functools
+import time
 from dataclasses import dataclass
 from typing import NamedTuple, Optional, Tuple
 
@@ -25,9 +31,10 @@ import torch
 
 from .models.vgg import INPUT, extract_features
 from .ops import losses as L
+from .ops.cuda import ns_sqrtm as K
 from .ops.cuda.ns_sqrtm import sqrtm_ns_lyap, trace_sqrtm_ns
 from .parallel.mesh import all_reduce_
-from .utils.ema import EMAState, ema_update
+from .utils.ema import EMAState, ema_update_
 from .zoom_lbfgs import ZoomLBFGSState, zoom_lbfgs_init, zoom_lbfgs_update
 
 __all__ = [
@@ -35,6 +42,7 @@ __all__ = [
     "AdamState",
     "LBFGSState",
     "LoopState",
+    "adam_bias_corrections",
     "adam_init",
     "build_loss_fn",
     "build_loss_terms_fn",
@@ -43,6 +51,7 @@ __all__ = [
     "make_adam_runner",
     "make_lbfgs_runner",
     "make_lbfgs_zoom_runner",
+    "runs_as_graph",
     "zoom_lbfgs_init",
 ]
 
@@ -204,57 +213,208 @@ def adam_init(image) -> AdamState:
     return AdamState(mu=torch.zeros_like(image), nu=torch.zeros_like(image), count=0)
 
 
+def adam_bias_corrections(cfg: StepConfig, t):
+    """(1 - beta1^t, 1 - beta2^t) for a float32 tensor count ``t``, on its
+    device, as the JAX package's ``_adam_apply`` computes them: float32
+    betas, the power rounded to float32, then 1 - it in float32. The power
+    is taken in float64 and rounded, which gives XLA's float32 ``pow``
+    bit for bit for counts 1-10 000, where float32 ``pow`` routines
+    differ from it by an ulp (2 ulp of the correction)."""
+
+    def power(beta):
+        return torch.pow(float(np.float32(beta)), t.double()).float()
+
+    return 1.0 - power(cfg.beta1), 1.0 - power(cfg.beta2)
+
+
 def _adam_apply(cfg: StepConfig, opt: AdamState, g):
-    """PyTorch-semantics Adam (bias-corrected, eps outside the sqrt). The
-    bias corrections are float32 host scalars, as the JAX package computes
-    them in float32."""
+    """PyTorch-semantics Adam (bias-corrected, eps outside the sqrt), with
+    ``opt.count`` a float32 0-d tensor on the image's device: the count and
+    the bias corrections never leave the device, so a captured graph
+    replays them with each replay's own count."""
     count = opt.count + 1
     mu = cfg.beta1 * opt.mu + (1.0 - cfg.beta1) * g
     nu = cfg.beta2 * opt.nu + (1.0 - cfg.beta2) * (g * g)
-    t = np.float32(count)
-    bc1 = float(np.float32(1.0) - np.power(np.float32(cfg.beta1), t))
-    bc2 = float(np.float32(1.0) - np.power(np.float32(cfg.beta2), t))
+    bc1, bc2 = adam_bias_corrections(cfg, count)
     update = cfg.step_size * (mu / bc1) / (torch.sqrt(nu / bc2) + cfg.adam_eps)
     return update, AdamState(mu=mu, nu=nu, count=count)
 
 
-def _make_runner(cfg: StepConfig, apply, mesh=None):
-    """Returns ``run(params, consts, state, n_steps) -> (state, losses)``:
-    ``n_steps`` iterations of loss and gradient (image only) -> ``apply(opt,
-    image, g, loss, value_and_grad) -> (image, opt)`` -> EMA, with the
-    per-iteration losses in an (n_steps,) tensor on the image's device.
-    ``value_and_grad(x)`` is the loss and its gradient at another image,
-    each call one autograd graph, freed before it returns."""
+def _write_(dst, src):
+    """Copies the tensors of ``src`` into those of ``dst`` (a tensor or a
+    NamedTuple of them, alike in structure) and returns ``dst``'s structure
+    with ``src``'s host fields (the zoom state's counts)."""
+    if isinstance(dst, torch.Tensor):
+        dst.copy_(src)
+        return dst
+    if isinstance(dst, tuple):
+        return type(dst)(*map(_write_, dst, src))
+    return src
+
+
+def _clone(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, tuple):
+        return type(tree)(*map(_clone, tree))
+    return tree
+
+
+def _make_step(cfg: StepConfig, apply, mesh=None):
+    """Returns the in-place step body ``step_(params, consts, static) ->
+    (static, loss)``: loss and gradient (image only) at ``static.image`` ->
+    ``apply(opt, image, g, loss, value_and_grad) -> (image, opt)`` -> EMA,
+    the new state written into ``static``'s own tensors. ``value_and_grad(x)``
+    is the loss and its gradient at another image, each call one autograd
+    graph, freed before it returns. The optimizer state is written before
+    the image: the zoom state keeps the previous iterate, the image itself."""
     loss_fn = build_loss_fn(cfg, mesh)
 
-    def run(params, consts, state: LoopState, n_steps: int):
+    def step_(params, consts, static: LoopState):
         def value_and_grad(image):
             x = image.detach().requires_grad_(True)
             loss = loss_fn(x, params, consts)
             (g,) = torch.autograd.grad(loss, x)
             return loss.detach(), g
 
-        image, opt, ema = state
-        losses = torch.empty(n_steps, dtype=torch.float32, device=image.device)
+        loss, g = value_and_grad(static.image)
+        image, opt = apply(static.opt, static.image, g, loss, value_and_grad)
+        ema_update_(static.ema, image, cfg.avg_decay)
+        opt = _write_(static.opt, opt)
+        static.image.copy_(image)
+        return static._replace(opt=opt), loss
+
+    return step_
+
+
+def runs_as_graph(device, optimizer: str, mesh=None) -> bool:
+    """The runners' path choice, by the path alone: on a CUDA device with no
+    mesh, ``adam`` and ``lbfgs`` run each iteration as a replay of a
+    captured CUDA graph. ``lbfgs-zoom`` stays eager (its line search reads
+    each trial's value and slope to the host), and so does a mesh (gloo
+    stages the halos through host memory) and the CPU."""
+    return (torch.device(device).type == "cuda" and mesh is None
+            and optimizer in ("adam", "lbfgs"))
+
+
+@functools.lru_cache(maxsize=None)
+def _capture_stream(device):
+    """The side stream that graphs on ``device`` are warmed up and captured
+    on, one per device, so its cuBLAS workspace is made once."""
+    return torch.cuda.Stream(device=device)
+
+
+class _Runner:
+    """``run(params, consts, state, n_steps) -> (state, losses)``: ``n_steps``
+    iterations of a step body (:func:`_make_step`), the per-iteration
+    losses in an (n_steps,) float32 tensor on the image's device.
+
+    The runner keeps the state in buffers of its own, which every
+    iteration writes in place; the state handed back holds those buffers
+    (Adam's count is a device tensor inside and the host int ``count + n``
+    outside), and passing it back continues from them. Any other state is
+    copied into new buffers (and a graph is captured anew over them), so
+    the caller's tensors are never written.
+
+    On the CPU, under a mesh, for ``lbfgs-zoom``, or with ``eager`` (a
+    caller's comparison), each iteration runs the body eagerly. Otherwise
+    (:func:`runs_as_graph`) the runner is the port of the JAX package's
+    ``jit`` over ``lax.scan`` with the state donated: the first iteration on new
+    buffers runs eagerly on a side stream (it is a real iteration, and it
+    builds what is made lazily on the device: the ImageNet constants, the
+    kernels' one-time attribute setup, cuDNN's algorithm choice, cuBLAS's
+    workspace), the next is captured once into a CUDA graph over the
+    buffers, params and consts, in a memory pool of its own, and every
+    iteration from then on is a replay, its loss copied into the chunk's
+    losses after it. A capture or replay that fails raises. The kernels'
+    launch counts (``ops/cuda/ns_sqrtm.py``) count each replay's launches.
+    ``capture_seconds`` is the host time of the last capture and its
+    instantiation."""
+
+    def __init__(self, step, optimizer: str, mesh=None, eager: bool = False):
+        self._step, self._optimizer, self._mesh = step, optimizer, mesh
+        self._eager = eager
+        self._static = self._handed = self._inputs = self._count = None
+        self._graph = self._loss = None
+        self._warm = False
+        self._recorded = (0, 0, 0)
+        self.capture_seconds = None
+
+    def __call__(self, params, consts, state: LoopState, n_steps: int):
+        if state is not self._handed:
+            self._load(state)
+        if self._inputs is None or any(a is not b for a, b in zip(self._inputs,
+                                                                  (params, consts))):
+            self._graph = self._loss = None  # the graph holds the old ones
+            self._inputs = (params, consts)
+        device = self._static.image.device
+        graphed = not self._eager and runs_as_graph(device, self._optimizer, self._mesh)
+        losses = torch.empty(n_steps, dtype=torch.float32, device=device)
         for k in range(n_steps):
-            loss, g = value_and_grad(image)
-            image, opt = apply(opt, image, g, loss, value_and_grad)
-            ema = ema_update(ema, image, cfg.avg_decay)
-            losses[k] = loss
-        return LoopState(image=image, opt=opt, ema=ema), losses
+            if not graphed:
+                self._static, losses[k] = self._step(params, consts, self._static)
+            elif self._graph is not None:
+                self._replay(losses, k)
+            elif self._warm:
+                self._capture(params, consts, device)
+                self._replay(losses, k)
+            else:
+                self._warm_up(params, consts, losses, k, device)
+        if self._count is not None:
+            self._count += n_steps
+        s = self._static
+        self._handed = (s if self._count is None
+                        else s._replace(opt=s.opt._replace(count=self._count)))
+        return self._handed, losses
 
-    return run
+    def _load(self, state: LoopState):
+        opt, self._count = state.opt, None
+        if isinstance(opt, AdamState):
+            self._count = int(opt.count)
+            opt = opt._replace(count=torch.full((), float(opt.count), dtype=torch.float32,
+                                                device=state.image.device))
+        self._graph = self._loss = None
+        self._warm = False
+        self._static = _clone(state._replace(opt=opt))
+
+    def _warm_up(self, params, consts, losses, k, device):
+        stream, main = _capture_stream(device), torch.cuda.current_stream(device)
+        stream.wait_stream(main)
+        with torch.cuda.stream(stream):
+            self._static, losses[k] = self._step(params, consts, self._static)
+        main.wait_stream(stream)
+        self._warm = True
+
+    def _capture(self, params, consts, device):
+        graph, before = torch.cuda.CUDAGraph(), K.launch_counts()
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        # thread_local: the checkpoint writer and the image saver may fetch
+        # on their own threads and streams meanwhile, which "global" forbids.
+        with torch.cuda.graph(graph, stream=_capture_stream(device),
+                              capture_error_mode="thread_local"):
+            _, self._loss = self._step(params, consts, self._static)
+        self.capture_seconds = time.perf_counter() - t0
+        # The capture launched nothing: its counts move to the replays.
+        self._recorded = tuple(a - b for a, b in zip(K.launch_counts(), before))
+        K.add_launches(self._recorded, -1)
+        self._graph = graph
+
+    def _replay(self, losses, k):
+        self._graph.replay()
+        losses[k] = self._loss
+        K.add_launches(self._recorded)
 
 
-def make_adam_runner(cfg: StepConfig, mesh=None):
-    """The Adam runner (see :func:`_make_runner`): gradient -> Adam -> clamp
-    to [0, 1] -> EMA, all elementwise (each rank updates its own slab)."""
+def make_adam_runner(cfg: StepConfig, mesh=None, *, eager: bool = False):
+    """The Adam runner (see :class:`_Runner`): gradient -> Adam -> clamp to
+    [0, 1] -> EMA, all elementwise (each rank updates its own slab)."""
 
     def apply(opt, image, g, *_):
         update, opt = _adam_apply(cfg, opt, g)
         return torch.clamp(image - update, 0.0, 1.0), opt
 
-    return _make_runner(cfg, apply, mesh)
+    return _Runner(_make_step(cfg, apply, mesh), "adam", mesh, eager)
 
 
 class LBFGSState(NamedTuple):
@@ -378,8 +538,8 @@ def lbfgs_step(state: LBFGSState, image, g, lr: float, mesh=None):
     return new_image, new_state
 
 
-def make_lbfgs_runner(cfg: StepConfig, mesh=None):
-    """The reference-flavour L-BFGS runner (see :func:`_make_runner`):
+def make_lbfgs_runner(cfg: StepConfig, mesh=None, *, eager: bool = False):
+    """The reference-flavour L-BFGS runner (see :class:`_Runner`):
     gradient -> L-BFGS step -> EMA, with ``state.opt`` an :class:`LBFGSState`.
 
     Matches the reference's ``optim.LBFGS(max_iter=1, history_size=10)`` with
@@ -391,12 +551,14 @@ def make_lbfgs_runner(cfg: StepConfig, mesh=None):
     iteration.
     """
     sharded = {} if mesh is None else {"mesh": mesh}  # the one-device call as before
-    return _make_runner(
+    step = _make_step(
         cfg, lambda opt, image, g, *_: lbfgs_step(opt, image, g, lr=1.0, **sharded), mesh)
+    return _Runner(step, "lbfgs", mesh, eager)
 
 
-def make_lbfgs_zoom_runner(cfg: StepConfig, mesh=None):
-    """The ``lbfgs-zoom`` runner (see :func:`_make_runner`): loss and
+def make_lbfgs_zoom_runner(cfg: StepConfig, mesh=None, *, eager: bool = False):
+    """The ``lbfgs-zoom`` runner (see :class:`_Runner`; eager whatever
+    ``eager`` says, which it takes as the other runners do): loss and
     gradient -> ``optax.lbfgs(memory_size=10)`` with its zoom line search
     (``zoom_lbfgs.py``), whose trials evaluate the same loss -> EMA, with
     ``state.opt`` a ``ZoomLBFGSState`` (``zoom_lbfgs_init``). No clamp and
@@ -404,6 +566,7 @@ def make_lbfgs_zoom_runner(cfg: StepConfig, mesh=None):
     gradient at each iterate are computed anew, not taken from the line
     search's last trial, so the evaluations equal the reference's."""
     sharded = {} if mesh is None else {"mesh": mesh}  # the one-device call as before
-    return _make_runner(
+    step = _make_step(
         cfg, lambda opt, image, g, loss, value_and_grad: zoom_lbfgs_update(
             opt, image, loss, g, value_and_grad, **sharded), mesh)
+    return _Runner(step, "lbfgs-zoom", mesh, eager)

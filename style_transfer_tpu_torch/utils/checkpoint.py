@@ -168,8 +168,8 @@ class AsyncCheckpointWriter:
     iteration loop. Only the *newest* submitted state is kept: if a write
     is still in flight when the next one arrives, the pending slot is
     replaced (a checkpoint is a recovery point, not a log). Submitted
-    tensors must not be modified in place afterwards; the engine's runners
-    never do (each step builds new tensors).
+    tensors must not be modified in place afterwards; the engine submits
+    copies, since its runners write the state in place.
 
     ``flush()`` blocks until the slot is empty and no write is in flight;
     call it before process exit (and on interrupt) so the last submitted

@@ -22,11 +22,13 @@ import __graft_entry__ as graft
 from style_transfer_tpu_torch import StyleTransfer, bench
 from style_transfer_tpu_torch.engine import phase_totals
 from style_transfer_tpu_torch.models.weights import random_params
+from style_transfer_tpu_torch.utils.ema import ema_init
 
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO / "tools"))
 
 import bench_pyramid_torch  # noqa: E402
+import lbfgs_determinacy_torch  # noqa: E402
 import profile_step_torch  # noqa: E402
 
 torch.set_num_threads(2)
@@ -82,14 +84,16 @@ def test_bench_main_prints_one_json_line(capsys):
     assert rec["vs_baseline"] == pytest.approx(rec["value"] / 26.7, abs=1e-3)
 
 
-@pytest.mark.parametrize("tool", ["bench", "bench_pyramid", "profile"])
+@pytest.mark.parametrize("tool", ["bench", "bench_pyramid", "profile", "determinacy"])
 def test_default_device_needs_cuda(tool, monkeypatch):
     """Each tool runs on cuda:0 unless asked for the CPU, and fails there
     without a card: it never falls back to the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     call = {"bench": lambda: bench.main([]),
             "bench_pyramid": lambda: bench_pyramid_torch.run(64),
-            "profile": lambda: profile_step_torch.profile(32, 32)}[tool]
+            "profile": lambda: profile_step_torch.profile(32, 32),
+            "determinacy": lambda: lbfgs_determinacy_torch.measure(
+                seeds=1, iters=1, sizes=((32, 32),))}[tool]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         call()
 
@@ -98,9 +102,11 @@ def test_pyramid_bench_record():
     rec = bench_pyramid_torch.run(64, device="cpu", iterations=3, initial_iterations=3)
     # tools/bench_pyramid.py's keys, and the device.
     assert set(rec) == {"metric", "value", "unit", "end_scale", "label", "iter_wall",
-                        "overhead_wall", "phases", "untimed", "scales", "device"}
+                        "overhead_wall", "phases", "untimed", "captures", "scales",
+                        "device"}
     assert rec["metric"] == "pyramid_wall" and rec["end_scale"] == 64
     assert rec["device"] == "cpu"
+    assert rec["captures"] == {}  # the CPU runs the step eagerly
     assert list(rec["scales"]) == ["64x48"]
     scale = rec["scales"]["64x48"]
     assert set(scale) == {"wall", "iters", "ms_per_iter", "peak_mib"}
@@ -112,6 +118,22 @@ def test_pyramid_bench_record():
         rec["value"], abs=0.011)
     assert rec["iter_wall"] + rec["overhead_wall"] == pytest.approx(rec["value"], abs=0.011)
     assert 0 <= rec["overhead_wall"] < rec["value"]
+
+
+def test_lbfgs_determinacy_on_cpu(capsys):
+    """On the CPU the step runs eagerly and reproducibly: every run of a
+    seed gives the same losses, from either init."""
+    out = lbfgs_determinacy_torch.measure(device="cpu", seeds=2, iters=3,
+                                          sizes=((24, 32),))
+    assert set(out) == {("uniform", (24, 32)), ("gray", (24, 32))}
+    for ge, ee in out.values():
+        assert ge == [0.0, 0.0] and ee == [0.0, 0.0]
+    assert "gray 32x24, seeds 0-1, iterations 1-3" in capsys.readouterr().out
+    _, _, _, state = bench.build_step(24, 32, device="cpu", optimizer="lbfgs")
+    gray = lbfgs_determinacy_torch.gray_start(state)
+    assert torch.equal(gray.image, state.image / 255.0 + 0.5)
+    assert torch.equal(gray.ema.value, ema_init(gray.image, 0.99).value)
+    assert int(gray.opt.n_iter) == 0
 
 
 def test_profile_on_cpu_is_not_measured(capsys):
@@ -176,3 +198,32 @@ def test_profile_summary_of_a_device_trace():
     # conv2d's FLOPs go to its convolution kernel, not to its layout copy.
     assert top[fprop]["tflops"] == pytest.approx(4e9 / 40e-6 / 1e12)
     assert top[layout]["tflops"] is None and top[gemv]["tflops"] is None
+
+
+def test_profile_summary_of_graph_replays():
+    """A CUDA graph's kernels, which no op launches, take their buckets,
+    launching ops and FLOP rates from the summary of an eager step: a
+    kernel that step launched from two ops is split over their buckets in
+    its proportions, and the sources are the eager step's."""
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    conv = "sm80_xmma_fprop_implicit_gemm_f32"
+    eager = profile_step_torch.summarize([
+        _event("aten::cudnn_convolution", cpu, 0, 30, [(conv, 30.0)], flops=3e9),
+        _event("aten::convolution_backward", cpu, 30, 40, [(conv, 10.0)]),
+        _event(conv, cuda, 0, 30), _event(conv, cuda, 30, 40),
+        _event("stt::stt_nsk_gemm(Launch)", cuda, 40, 50),
+    ], iters=1, wall_us=50.0)
+    replays = [_event("cudaGraphLaunch", cpu, 0, 1),
+               *(_event(conv, cuda, 80 * i, 80 * i + 80) for i in range(2)),
+               _event("stt::stt_nsk_gemm(Launch)", cuda, 160, 200)]
+    s = profile_step_torch.summarize(replays, iters=2, wall_us=250.0, attribution=eager)
+    assert s["kernel_ms_per_iter"] == pytest.approx(200.0 / 2e3)
+    assert s["busy"] == pytest.approx(200.0 / 250.0)
+    assert s["buckets"] == pytest.approx({
+        "cuDNN conv forward": 120 / 2e3, "cuDNN conv dgrad": 40 / 2e3,
+        "NS kernels (stt_nsk_)": 40 / 2e3})
+    assert s["sources"] == eager["sources"]
+    top = {k["name"]: k for k in s["top"]}
+    assert top[conv]["source"] == "aten::cudnn_convolution"
+    assert top[conv]["tflops"] == pytest.approx(eager["top"][0]["tflops"])
+    assert top["stt::stt_nsk_gemm(Launch)"]["source"] == "(no op)"

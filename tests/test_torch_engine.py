@@ -145,7 +145,8 @@ def test_port_imports_no_jax():
             "style_transfer_tpu_torch.parallel.multihost, "
             "style_transfer_tpu_torch.parallel.checks, style_transfer_tpu_torch.bench; "
             "sys.path.insert(0, 'tools'); "
-            "import fidelity_torch, bench_pyramid_torch, profile_step_torch; "
+            "import fidelity_torch, bench_pyramid_torch, profile_step_torch, "
+            "lbfgs_determinacy_torch; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'optax' or m.startswith('optax.') "
             "or m == 'style_transfer_tpu' or m.startswith('style_transfer_tpu.')]; "

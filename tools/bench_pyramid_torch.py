@@ -12,7 +12,8 @@ iterations a scale). Prints ONE JSON line on stdout:
 
   {"metric": "pyramid_wall", "value": <total s>, "unit": "s",
    "end_scale": N, "label": L, "iter_wall": s, "overhead_wall": s,
-   "phases": {family: s}, "untimed": s, "device": name,
+   "phases": {family: s}, "untimed": s, "captures": {scale: s},
+   "device": name,
    "scales": {"WxH": {"wall": s, "iters": n, "ms_per_iter": m,
                       "peak_mib": MiB}, ...}}
 
@@ -20,8 +21,11 @@ iterations a scale). Prints ONE JSON line on stdout:
 ``STIterate.time`` stamp (chunk-interpolated, so n - 1 intervals); the rest
 of the wall is ``overhead_wall``. ``phases`` groups the engine's
 ``phase_totals`` by family (``targets@512`` and ``targets@2896`` both land
-in ``targets``; the indented rows nest inside ``targets`` and are skipped);
-what no phase covers is ``untimed``. ``peak_mib`` is the scale's peak
+in ``targets``; the indented rows nest inside their phase and are skipped);
+what no phase covers is ``untimed``. ``captures`` holds each scale's
+indented ``  capture@S`` row: the host time of capturing and instantiating
+its CUDA graph of the step, inside that scale's first chunk (absent where
+the engine runs eagerly: on the CPU). ``peak_mib`` is the scale's peak
 device memory (``STIterate.gpu_ram``; 0 on the CPU). Per-scale lines go to
 stderr.
 """
@@ -78,8 +82,10 @@ def run(end_scale, *, device="cuda:0", precision="f32", label="unlabeled",
             "peak_mib": round(max(i.gpu_ram for i in its) / 2**20, 1),
         }
 
-    phases = {}
+    phases, captures = {}, {}
     for name, secs in phase_totals().items():
+        if name.startswith("  capture@"):
+            captures[name.split("@")[1]] = round(secs, 3)
         if name.startswith(" "):
             continue
         fam = name.split("@")[0]
@@ -95,6 +101,9 @@ def run(end_scale, *, device="cuda:0", precision="f32", label="unlabeled",
           file=sys.stderr)
     ph = ", ".join(f"{k} {v:.1f}s" for k, v in sorted(phases.items(), key=lambda kv: -kv[1]))
     print(f"phases: {ph}; untimed {total - sum(phases.values()):.1f}s", file=sys.stderr)
+    if captures:
+        print("graph capture per scale (inside its first chunk): "
+              + ", ".join(f"{k} {v:.3f}s" for k, v in captures.items()), file=sys.stderr)
     return {
         "metric": "pyramid_wall",
         "value": round(total, 2),
@@ -105,6 +114,7 @@ def run(end_scale, *, device="cuda:0", precision="f32", label="unlabeled",
         "overhead_wall": round(total - iter_wall, 2),
         "phases": phases,
         "untimed": round(total - sum(phases.values()), 2),
+        "captures": captures,
         "device": (torch.cuda.get_device_name(st.device) if st.device.type == "cuda"
                    else "cpu"),
         "scales": scales,

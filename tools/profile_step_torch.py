@@ -4,15 +4,19 @@ Usage: python3 tools/profile_step_torch.py H W [iters=20] [k=v ...]
 
 The port's counterpart of ``tools/profile_step.py``. Trailing k=v pairs go
 to ``style_transfer_tpu_torch.bench.build_step``: ``device=cpu``,
-``compute_dtype=bf16``, ``w2_grad=lyap``, ``optimizer=lbfgs`` or any
-``StepConfig`` field (``tv_weight=5``). The step runs ``iters`` iterations
-once to warm up, then once more under ``torch.profiler`` (CPU and CUDA
-activities, op FLOPs counted), and the device kernels of that window are
-reported:
+``compute_dtype=bf16``, ``w2_grad=lyap``, ``optimizer=lbfgs``,
+``eager=True`` (the eager runner in place of the card's graph replays) or
+any ``StepConfig`` field (``tv_weight=5``). The step runs ``iters``
+iterations once to warm up, then once more under ``torch.profiler`` (CPU
+and CUDA activities, op FLOPs counted), and the device kernels of that
+window are reported. On the card Adam and L-BFGS run as replays of one
+CUDA graph of the step, whose kernels no ATen op launches: the op that
+launches each kernel, and with it the kernel's bucket and FLOPs, then come
+from one more step run eagerly and profiled alone (the output says so).
 
 - device kernel ms/iter and the busy share (kernel time over the wall of
   as many iterations run just before without the profiler, whose own host
-  time would lower it);
+  time would lower it), and the same over the profiled run's own wall;
 - buckets: the NS kernels (every kernel of ``csrc/`` starts with
   ``stt_nsk_``), cuDNN convolution forward, dgrad and wgrad, cuBLAS
   GEMM/GEMV, layout copies (``nchwToNhwc``), elementwise/reduction, other;
@@ -120,9 +124,12 @@ def _counted_above(event):
     return False
 
 
-def summarize(events, iters, wall_us):
+def summarize(events, iters, wall_us, attribution=None):
     """The summary dict of a profiled window of ``iters`` iterations (see
-    the module docstring), or None when it holds no device kernel."""
+    the module docstring), or None when it holds no device kernel. With
+    ``attribution`` (the summary of an eager step of the same step), each
+    kernel's time is split over the buckets as that step's was, and its
+    launching op, its FLOP rate and the sources are that step's."""
     import torch
 
     cuda = torch.autograd.DeviceType.CUDA
@@ -157,12 +164,24 @@ def summarize(events, iters, wall_us):
         if us - claimed > 1e-3:
             by_pair[(name, NO_OP, "")] += us - claimed
 
-    buckets, sources, main_source = defaultdict(float), defaultdict(float), {}
+    # Each kernel's share of each bucket, and the op that launched most of it.
+    shares, sources, main_source = defaultdict(dict), defaultdict(float), {}
     for (name, op, shapes), us in by_pair.items():
-        buckets[_bucket(name, None if op == NO_OP else op)] += us
+        b = _bucket(name, None if op == NO_OP else op)
+        shares[name][b] = shares[name].get(b, 0.0) + us / by_name[name]
         sources[op] += us
         if us > main_source.get(name, (-1.0, ""))[0]:
             main_source[name] = (us, f"{op} {shapes}".strip())
+    main_source = {n: src for n, (_, src) in main_source.items()}
+    for k in (attribution or {}).get("top", ()):
+        if k["name"] in by_name:
+            shares[k["name"]] = k["buckets"]
+            main_source[k["name"]] = k["source"]
+            flops[k["name"]] = (k["tflops"] or 0.0) * by_name[k["name"]] * 1e6
+    buckets = defaultdict(float)
+    for name, us in by_name.items():
+        for b, share in shares[name].items():
+            buckets[b] += us * share
 
     def ms(us):
         return us / iters / 1e3
@@ -176,18 +195,21 @@ def summarize(events, iters, wall_us):
         "buckets": {b: ms(us) for b, us in sorted(buckets.items(), key=lambda kv: -kv[1])},
         "top": [{"name": n, "ms_per_iter": ms(us),
                  "tflops": flops[n] / (us * 1e6) if flops.get(n) else None,
-                 "source": main_source[n][1]}
+                 "source": main_source[n], "buckets": shares[n]}
                 for n, us in sorted(by_name.items(), key=lambda kv: -kv[1])],
-        "sources": [{"op": op, "ms_per_iter": ms(us)}
-                    for op, us in sorted(sources.items(), key=lambda kv: -kv[1])],
+        "sources": (attribution["sources"] if attribution is not None else
+                    [{"op": op, "ms_per_iter": ms(us)}
+                     for op, us in sorted(sources.items(), key=lambda kv: -kv[1])]),
     }
 
 
-def profile_runner(runner, params, consts, state, iters, device):
+def profile_runner(runner, params, consts, state, iters, device, attribution=None):
     """Runs ``iters`` iterations of a ``build_step`` runner, timed and
     ended by a sync, then ``iters`` more under ``torch.profiler``; returns
-    (state, ``summarize``'s dict or None). The busy share's wall is the
-    first run's: the profiler's own host time would lower it."""
+    (state, ``summarize``'s dict or None, with ``attribution`` as there).
+    The busy share's wall is the first run's: the profiler's own host time
+    would lower it. ``busy_profiled`` is the kernel time over the profiled
+    run's own wall: above 1 only where kernels overlap."""
     import torch
 
     t0 = time.perf_counter()
@@ -198,27 +220,52 @@ def profile_runner(runner, params, consts, state, iters, device):
     if device.type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     with torch.profiler.profile(activities=acts, with_flops=True) as prof:
+        t0 = time.perf_counter()
         state, _ = runner(params, consts, state, iters)
         _sync(device)
-    return state, summarize(prof.events(), iters, wall_us)
+        profiled_us = (time.perf_counter() - t0) * 1e6
+    s = summarize(prof.events(), iters, wall_us, attribution)
+    if s is not None:
+        s["busy_profiled"] = s["kernel_ms_per_iter"] * iters * 1e3 / profiled_us
+    return state, s
+
+
+def eager_attribution(h, w, **cfg):
+    """The summary of one eager step at (h, w), profiled alone after one
+    warm-up step: each kernel's launching op, bucket and FLOP rate, and the
+    sources, for a graph runner's profile. None where no device kernel was
+    seen."""
+    device, (runner, params, consts, state) = _build(h, w, dict(cfg, eager=True))
+    state, _ = runner(params, consts, state, 1)
+    _sync(device)
+    return profile_runner(runner, params, consts, state, 1, device)[1]
 
 
 def profile(h, w, iters=20, top=30, **cfg):
     """Profiles the step at (h, w) (see the module docstring); prints the
     buckets, the top kernels and the top sources, and returns the summary,
-    or None when no device kernel was seen."""
+    or None when no device kernel was seen. ``graph`` in the summary says
+    whether the profiled runner replayed a CUDA graph."""
+    from style_transfer_tpu_torch.step import runs_as_graph
+
     device, (runner, params, consts, state) = _build(h, w, cfg)
+    graph = not cfg.get("eager") and runs_as_graph(device, cfg.get("optimizer", "adam"))
+    attribution = eager_attribution(h, w, **cfg) if graph else None
     state, _ = runner(params, consts, state, iters)
     _sync(device)
-    _, s = profile_runner(runner, params, consts, state, iters, device)
-    head = f"{h}x{w} {cfg} {iters} iters"
+    _, s = profile_runner(runner, params, consts, state, iters, device, attribution)
+    head = f"{h}x{w} {cfg} {iters} iters ({'graph replays' if graph else 'eager'})"
     if s is None:
         print(f"\n=== {head}: device kernel time not measured "
               "(the profiler saw no device kernel) ===", flush=True)
         return None
+    s["graph"] = graph
     print(f"\n=== {head}: {s['kernel_ms_per_iter']:.3f} ms/iter device kernel time, "
           f"busy share {s['busy']:.2f} of {s['wall_ms_per_iter']:.3f} ms/iter wall "
-          "(unprofiled) ===")
+          f"(unprofiled; {s['busy_profiled']:.2f} of the profiled run's wall) ===")
+    if graph:
+        print("(the kernels' buckets, launching ops, FLOP rates and the sources "
+              "below are from one eager step of the same step, profiled alone)")
     for b, v in s["buckets"].items():
         print(f"{b:32s} {v:8.3f} ms/iter ({100 * v / s['kernel_ms_per_iter']:5.1f}%)")
     print(f"\nTop {top} kernels (TF/s = the launching op's FLOPs over its conv/GEMM "
