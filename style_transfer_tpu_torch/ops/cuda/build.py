@@ -40,6 +40,8 @@ _SIGNATURES = {
     "stt_ns_sqrtm_yz_f32": [_VP] * 7 + [_I, _I, _I, _VP],
     "stt_ns_sqrtm_f32": [_VP] * 7 + [_I, _I, _I, _VP],
     "stt_lyap_bwd_f32": [_VP] * 9 + [_I, _I, _I, _VP],
+    "stt_zoom_ls_num_fields": [],
+    "stt_zoom_ls_step_f32": [_VP] * 4 + [_I, _VP],
 }
 
 

@@ -14,11 +14,13 @@ the per-iteration losses on the device and leaves the sync to the caller,
 once per chunk: Adam is gradient (image only), Adam, clamp to [0, 1], EMA;
 L-BFGS is gradient, a fixed-step L-BFGS update with no clamp, EMA; L-BFGS
 with the zoom line search is gradient, the L-BFGS direction and a line
-search along it (which reads each trial's value and slope to the host), no
-clamp, EMA. On the card, Adam and L-BFGS run each iteration as a replay of
-a CUDA graph captured once per runner (once per scale in the engine;
-:class:`_Runner`), the port of the JAX runners' compiled chunk; elsewhere
-the body runs eagerly.
+search along it (up to 20 trials, each a loss evaluation and one step of
+the search's device state), no clamp, EMA. On one card every runner runs
+each iteration as replays of CUDA graphs captured once per runner (once
+per scale in the engine; :class:`_Runner`), the port of the JAX runners'
+compiled chunk: Adam's and L-BFGS's step is one graph, the zoom iteration
+three (its head, one trial replayed while the search goes on, its tail);
+elsewhere the body runs eagerly.
 """
 
 import functools
@@ -32,10 +34,17 @@ import torch
 from .models.vgg import INPUT, extract_features
 from .ops import losses as L
 from .ops.cuda import ns_sqrtm as K
+from .ops.cuda import zoom_ls as ZL
 from .ops.cuda.ns_sqrtm import sqrtm_ns_lyap, trace_sqrtm_ns
 from .parallel.mesh import all_reduce_
 from .utils.ema import EMAState, ema_update_
-from .zoom_lbfgs import ZoomLBFGSState, zoom_lbfgs_init, zoom_lbfgs_update
+from .zoom_lbfgs import (
+    MAX_LINESEARCH_STEPS,
+    ZoomLBFGSState,
+    ZoomLBFGSUpdate,
+    run_trials,
+    zoom_lbfgs_init,
+)
 
 __all__ = [
     "StepConfig",
@@ -242,14 +251,11 @@ def _adam_apply(cfg: StepConfig, opt: AdamState, g):
 
 def _write_(dst, src):
     """Copies the tensors of ``src`` into those of ``dst`` (a tensor or a
-    NamedTuple of them, alike in structure) and returns ``dst``'s structure
-    with ``src``'s host fields (the zoom state's counts)."""
+    NamedTuple of them, alike in structure) and returns ``dst``."""
     if isinstance(dst, torch.Tensor):
         dst.copy_(src)
         return dst
-    if isinstance(dst, tuple):
-        return type(dst)(*map(_write_, dst, src))
-    return src
+    return type(dst)(*map(_write_, dst, src))
 
 
 def _clone(tree):
@@ -260,25 +266,29 @@ def _clone(tree):
     return tree
 
 
+def _value_and_grad(loss_fn, params, consts):
+    """``value_and_grad(x)``: the loss and its gradient at the image ``x``,
+    each call one autograd graph, freed before it returns."""
+
+    def value_and_grad(image):
+        x = image.detach().requires_grad_(True)
+        loss = loss_fn(x, params, consts)
+        (g,) = torch.autograd.grad(loss, x)
+        return loss.detach(), g
+
+    return value_and_grad
+
+
 def _make_step(cfg: StepConfig, apply, mesh=None):
     """Returns the in-place step body ``step_(params, consts, static) ->
     (static, loss)``: loss and gradient (image only) at ``static.image`` ->
-    ``apply(opt, image, g, loss, value_and_grad) -> (image, opt)`` -> EMA,
-    the new state written into ``static``'s own tensors. ``value_and_grad(x)``
-    is the loss and its gradient at another image, each call one autograd
-    graph, freed before it returns. The optimizer state is written before
-    the image: the zoom state keeps the previous iterate, the image itself."""
+    ``apply(opt, image, g) -> (image, opt)`` -> EMA, the new state written
+    into ``static``'s own tensors."""
     loss_fn = build_loss_fn(cfg, mesh)
 
     def step_(params, consts, static: LoopState):
-        def value_and_grad(image):
-            x = image.detach().requires_grad_(True)
-            loss = loss_fn(x, params, consts)
-            (g,) = torch.autograd.grad(loss, x)
-            return loss.detach(), g
-
-        loss, g = value_and_grad(static.image)
-        image, opt = apply(static.opt, static.image, g, loss, value_and_grad)
+        loss, g = _value_and_grad(loss_fn, params, consts)(static.image)
+        image, opt = apply(static.opt, static.image, g)
         ema_update_(static.ema, image, cfg.avg_decay)
         opt = _write_(static.opt, opt)
         static.image.copy_(image)
@@ -289,12 +299,11 @@ def _make_step(cfg: StepConfig, apply, mesh=None):
 
 def runs_as_graph(device, optimizer: str, mesh=None) -> bool:
     """The runners' path choice, by the path alone: on a CUDA device with no
-    mesh, ``adam`` and ``lbfgs`` run each iteration as a replay of a
-    captured CUDA graph. ``lbfgs-zoom`` stays eager (its line search reads
-    each trial's value and slope to the host), and so does a mesh (gloo
-    stages the halos through host memory) and the CPU."""
-    return (torch.device(device).type == "cuda" and mesh is None
-            and optimizer in ("adam", "lbfgs"))
+    mesh, every runner (``adam``, ``lbfgs``, ``lbfgs-zoom``) runs each
+    iteration as a replay of a captured CUDA graph. A mesh (gloo stages the
+    halos through host memory) and the CPU run eagerly."""
+    del optimizer  # every optimizer takes the same path
+    return torch.device(device).type == "cuda" and mesh is None
 
 
 @functools.lru_cache(maxsize=None)
@@ -304,67 +313,135 @@ def _capture_stream(device):
     return torch.cuda.Stream(device=device)
 
 
+def _launch_counts():
+    """The launch counts of B1, B2, B3 and the line-search step kernel."""
+    return (*K.launch_counts(), ZL.ls_step_.launches)
+
+
+def _add_launches(counts, times: int = 1):
+    K.add_launches(counts[:3], times)
+    ZL.ls_step_.launches += times * counts[3]
+
+
+class _ZoomPhases:
+    """The zoom runner's step, in the three parts the graph runner captures
+    and replays apart: :meth:`head` (loss and gradient at the iterate, the
+    L-BFGS direction, the line search's start: :class:`ZoomLBFGSUpdate`),
+    :meth:`trial` (one trial, run while the search's ``go`` holds:
+    :func:`run_trials`) and :meth:`tail` (the accepted step, the state
+    written, EMA). :meth:`step_` runs them eagerly, in the same order. What
+    one part hands the next (the direction, the search's state) stays
+    referenced here, so the graphs' shared pool keeps it. The optimizer
+    state is written before the image: it keeps the previous iterate, the
+    image itself."""
+
+    def __init__(self, cfg: StepConfig, mesh=None):
+        self._loss_fn, self._decay = build_loss_fn(cfg, mesh), cfg.avg_decay
+        self._mesh, self.max_steps = mesh, MAX_LINESEARCH_STEPS
+        self.loss = self._update = None
+
+    def head(self, params, consts, static: LoopState):
+        value_and_grad = _value_and_grad(self._loss_fn, params, consts)
+        self.loss, g = value_and_grad(static.image)
+        self._update = ZoomLBFGSUpdate(static.opt, static.image, self.loss, g,
+                                       value_and_grad, self.max_steps, self._mesh)
+
+    @property
+    def go(self):
+        return self._update.search.go
+
+    def trial(self):
+        self._update.search.trial()
+
+    def tail(self, static: LoopState):
+        image, opt = self._update.result()
+        ema_update_(static.ema, image, self._decay)
+        _write_(static.opt, opt)
+        static.image.copy_(image)
+
+    def step_(self, params, consts, static: LoopState):
+        self.head(params, consts, static)
+        run_trials(self.trial, self.go, self.max_steps)
+        self.tail(static)
+        return static, self.loss
+
+
 class _Runner:
     """``run(params, consts, state, n_steps) -> (state, losses)``: ``n_steps``
-    iterations of a step body (:func:`_make_step`), the per-iteration
-    losses in an (n_steps,) float32 tensor on the image's device.
+    iterations of a step body (:func:`_make_step`; the zoom runner's is
+    :meth:`_ZoomPhases.step_`), the per-iteration
+    losses in an (n_steps,) float32 tensor on the image's device. For
+    ``lbfgs-zoom``, ``linesearch_steps`` is then the chunk's line-search
+    evaluations per iteration, an (n_steps,) int32 tensor on that device.
 
     The runner keeps the state in buffers of its own, which every
     iteration writes in place; the state handed back holds those buffers
     (Adam's count is a device tensor inside and the host int ``count + n``
     outside), and passing it back continues from them. Any other state is
-    copied into new buffers (and a graph is captured anew over them), so
-    the caller's tensors are never written.
+    copied into new buffers (and the graphs are captured anew over them),
+    so the caller's tensors are never written.
 
-    On the CPU, under a mesh, for ``lbfgs-zoom``, or with ``eager`` (a
-    caller's comparison), each iteration runs the body eagerly. Otherwise
-    (:func:`runs_as_graph`) the runner is the port of the JAX package's
-    ``jit`` over ``lax.scan`` with the state donated: the first iteration on new
-    buffers runs eagerly on a side stream (it is a real iteration, and it
-    builds what is made lazily on the device: the ImageNet constants, the
-    kernels' one-time attribute setup, cuDNN's algorithm choice, cuBLAS's
-    workspace), the next is captured once into a CUDA graph over the
-    buffers, params and consts, in a memory pool of its own, and every
-    iteration from then on is a replay, its loss copied into the chunk's
-    losses after it. A capture or replay that fails raises. The kernels'
-    launch counts (``ops/cuda/ns_sqrtm.py``) count each replay's launches.
-    ``capture_seconds`` is the host time of the last capture and its
-    instantiation."""
+    On the CPU, under a mesh, or with ``eager`` (a caller's comparison),
+    each iteration runs the body eagerly. Otherwise (:func:`runs_as_graph`)
+    the runner is the port of the JAX package's ``jit`` over ``lax.scan``
+    with the state donated: the first iteration on new buffers runs eagerly
+    on a side stream (it is a real iteration, and it builds what is made
+    lazily on the device: the ImageNet constants, the kernels' one-time
+    attribute setup, cuDNN's algorithm choice, cuBLAS's workspace), the
+    next is captured once over the buffers, params and consts, in a memory
+    pool of its own, and every iteration from then on replays it, its loss
+    copied into the chunk's losses after it. Adam's and L-BFGS's step is
+    one CUDA graph. The zoom iteration (``phases``, :class:`_ZoomPhases`)
+    is three graphs in one pool, one for each of its parts; a replay runs
+    them as the eager body does: the head, the trial while the search's
+    ``go`` says so (:func:`run_trials`), the tail. The host reads one bool
+    per trial and nothing else. (The JAX runner's whole search runs on
+    the device; CUDA graphs' conditional nodes would do that here, but
+    PyTorch 2.11 does not expose them to Python.) A capture or
+    replay that fails raises. ``capture_seconds`` is the host time of the
+    last capture and its instantiation. The kernels' launch counts
+    (``ops/cuda/ns_sqrtm.py``, ``ops/cuda/zoom_ls.py``) count each replay's
+    launches (a capture's own are taken back)."""
 
-    def __init__(self, step, optimizer: str, mesh=None, eager: bool = False):
+    def __init__(self, step, optimizer: str, mesh=None, eager: bool = False,
+                 phases: _ZoomPhases = None):
         self._step, self._optimizer, self._mesh = step, optimizer, mesh
-        self._eager = eager
+        self._eager, self._phases = eager, phases
         self._static = self._handed = self._inputs = self._count = None
-        self._graph = self._loss = None
+        self._graphs = self._loss = None
         self._warm = False
-        self._recorded = (0, 0, 0)
-        self.capture_seconds = None
+        self.capture_seconds = self.linesearch_steps = None
 
     def __call__(self, params, consts, state: LoopState, n_steps: int):
         if state is not self._handed:
             self._load(state)
         if self._inputs is None or any(a is not b for a, b in zip(self._inputs,
                                                                   (params, consts))):
-            self._graph = self._loss = None  # the graph holds the old ones
+            self._graphs = self._loss = None  # the graphs hold the old ones
             self._inputs = (params, consts)
         device = self._static.image.device
         graphed = not self._eager and runs_as_graph(device, self._optimizer, self._mesh)
         losses = torch.empty(n_steps, dtype=torch.float32, device=device)
+        zoom = self._phases is not None
+        steps = torch.empty(n_steps, dtype=torch.int32, device=device) if zoom else None
         for k in range(n_steps):
             if not graphed:
                 self._static, losses[k] = self._step(params, consts, self._static)
-            elif self._graph is not None:
+            elif self._graphs is not None:
                 self._replay(losses, k)
             elif self._warm:
                 self._capture(params, consts, device)
                 self._replay(losses, k)
             else:
                 self._warm_up(params, consts, losses, k, device)
+            if zoom:
+                steps[k] = self._static.opt.linesearch_steps
         if self._count is not None:
             self._count += n_steps
         s = self._static
         self._handed = (s if self._count is None
                         else s._replace(opt=s.opt._replace(count=self._count)))
+        self.linesearch_steps = steps
         return self._handed, losses
 
     def _load(self, state: LoopState):
@@ -373,7 +450,7 @@ class _Runner:
             self._count = int(opt.count)
             opt = opt._replace(count=torch.full((), float(opt.count), dtype=torch.float32,
                                                 device=state.image.device))
-        self._graph = self._loss = None
+        self._graphs = self._loss = None
         self._warm = False
         self._static = _clone(state._replace(opt=opt))
 
@@ -386,31 +463,52 @@ class _Runner:
         self._warm = True
 
     def _capture(self, params, consts, device):
-        graph, before = torch.cuda.CUDAGraph(), K.launch_counts()
+        static, z = self._static, self._phases
+        if z is None:
+            parts = [lambda: self._step(params, consts, static)[1]]
+        else:
+            parts = [lambda: z.head(params, consts, static), z.trial, lambda: z.tail(static)]
         torch.cuda.synchronize(device)
         t0 = time.perf_counter()
-        # thread_local: the checkpoint writer and the image saver may fetch
-        # on their own threads and streams meanwhile, which "global" forbids.
-        with torch.cuda.graph(graph, stream=_capture_stream(device),
-                              capture_error_mode="thread_local"):
-            _, self._loss = self._step(params, consts, self._static)
+        graphs, pool = [], None
+        for part in parts:
+            graph, before = torch.cuda.CUDAGraph(), _launch_counts()
+            # thread_local: the checkpoint writer and the image saver may
+            # fetch on their own threads and streams meanwhile, which
+            # "global" forbids.
+            with torch.cuda.graph(graph, pool=pool, stream=_capture_stream(device),
+                                  capture_error_mode="thread_local"):
+                out = part()
+            # The capture launched nothing: its counts move to the replays.
+            recorded = tuple(a - b for a, b in zip(_launch_counts(), before))
+            _add_launches(recorded, -1)
+            graphs.append((graph, recorded))
+            pool = graph.pool()
         self.capture_seconds = time.perf_counter() - t0
-        # The capture launched nothing: its counts move to the replays.
-        self._recorded = tuple(a - b for a, b in zip(K.launch_counts(), before))
-        K.add_launches(self._recorded, -1)
-        self._graph = graph
+        self._loss = out if z is None else z.loss
+        self._graphs = graphs
 
     def _replay(self, losses, k):
-        self._graph.replay()
+        def play(part):
+            graph, recorded = part
+            graph.replay()
+            _add_launches(recorded)
+
+        if self._phases is None:
+            play(self._graphs[0])
+        else:  # the zoom iteration: its head, the trials, its tail
+            head, trial, tail = self._graphs
+            play(head)
+            run_trials(lambda: play(trial), self._phases.go, self._phases.max_steps)
+            play(tail)
         losses[k] = self._loss
-        K.add_launches(self._recorded)
 
 
 def make_adam_runner(cfg: StepConfig, mesh=None, *, eager: bool = False):
     """The Adam runner (see :class:`_Runner`): gradient -> Adam -> clamp to
     [0, 1] -> EMA, all elementwise (each rank updates its own slab)."""
 
-    def apply(opt, image, g, *_):
+    def apply(opt, image, g):
         update, opt = _adam_apply(cfg, opt, g)
         return torch.clamp(image - update, 0.0, 1.0), opt
 
@@ -552,21 +650,17 @@ def make_lbfgs_runner(cfg: StepConfig, mesh=None, *, eager: bool = False):
     """
     sharded = {} if mesh is None else {"mesh": mesh}  # the one-device call as before
     step = _make_step(
-        cfg, lambda opt, image, g, *_: lbfgs_step(opt, image, g, lr=1.0, **sharded), mesh)
+        cfg, lambda opt, image, g: lbfgs_step(opt, image, g, lr=1.0, **sharded), mesh)
     return _Runner(step, "lbfgs", mesh, eager)
 
 
 def make_lbfgs_zoom_runner(cfg: StepConfig, mesh=None, *, eager: bool = False):
-    """The ``lbfgs-zoom`` runner (see :class:`_Runner`; eager whatever
-    ``eager`` says, which it takes as the other runners do): loss and
-    gradient -> ``optax.lbfgs(memory_size=10)`` with its zoom line search
+    """The ``lbfgs-zoom`` runner (see :class:`_Runner`): loss and gradient
+    -> ``optax.lbfgs(memory_size=10)`` with its zoom line search
     (``zoom_lbfgs.py``), whose trials evaluate the same loss -> EMA, with
     ``state.opt`` a ``ZoomLBFGSState`` (``zoom_lbfgs_init``). No clamp and
     ``cfg.step_size`` ignored, as the JAX runner. As there, the loss and
     gradient at each iterate are computed anew, not taken from the line
     search's last trial, so the evaluations equal the reference's."""
-    sharded = {} if mesh is None else {"mesh": mesh}  # the one-device call as before
-    step = _make_step(
-        cfg, lambda opt, image, g, loss, value_and_grad: zoom_lbfgs_update(
-            opt, image, loss, g, value_and_grad, **sharded), mesh)
-    return _Runner(step, "lbfgs-zoom", mesh, eager)
+    phases = _ZoomPhases(cfg, mesh)
+    return _Runner(phases.step_, "lbfgs-zoom", mesh, eager, phases=phases)

@@ -120,6 +120,14 @@ def test_pyramid_bench_record():
     assert 0 <= rec["overhead_wall"] < rec["value"]
 
 
+def test_pyramid_bench_zoom_record():
+    """``--optimizer lbfgs-zoom`` runs the zoom pyramid and names its metric."""
+    rec = bench_pyramid_torch.run(64, device="cpu", iterations=2, initial_iterations=2,
+                                  optimizer="lbfgs-zoom")
+    assert rec["metric"] == "pyramid_wall_lbfgs_zoom" and rec["captures"] == {}
+    assert rec["scales"]["64x48"]["iters"] == 2
+
+
 def test_lbfgs_determinacy_on_cpu(capsys):
     """On the CPU the step runs eagerly and reproducibly: every run of a
     seed gives the same losses, from either init."""
@@ -134,6 +142,22 @@ def test_lbfgs_determinacy_on_cpu(capsys):
     assert torch.equal(gray.image, state.image / 255.0 + 0.5)
     assert torch.equal(gray.ema.value, ema_init(gray.image, 0.99).value)
     assert int(gray.opt.n_iter) == 0
+    zoom = lbfgs_determinacy_torch.gray_start(state, "lbfgs-zoom")
+    assert torch.equal(zoom.image, gray.image) and int(zoom.opt.count) == 0
+
+
+def test_zoom_determinacy_on_cpu(capsys):
+    """The zoom runner from the gray init, three eager runs: every pair
+    agrees on the CPU, and the per-iteration rows cover every iteration."""
+    out = lbfgs_determinacy_torch.measure(device="cpu", seeds=1, iters=3, sizes=((24, 32),),
+                                          optimizer="lbfgs-zoom", w2_grad="trace",
+                                          inits=("gray",), eager_runs=3)
+    assert out == {("gray", (24, 32)): ([0.0], [0.0])}
+    text = capsys.readouterr().out
+    assert "lbfgs-zoom trace gray 32x24, seeds 0-0, iterations 1-3" in text
+    assert "eager against eager (3 runs)" in text
+    rows = [line for line in text.splitlines() if "per iteration" in line]
+    assert len(rows) == 2 and all(len(row.split(": ")[1].split()) == 3 for row in rows)
 
 
 def test_profile_on_cpu_is_not_measured(capsys):

@@ -230,16 +230,18 @@ def test_image_changes_every_chunk():
     ("cuda:0", "adam", None, True),
     ("cuda:0", "lbfgs", None, True),
     (torch.device("cuda", 1), "adam", None, True),
-    ("cuda:0", "lbfgs-zoom", None, False),
+    ("cuda:0", "lbfgs-zoom", None, True),
     ("cuda:0", "adam", "mesh", False),
     ("cuda:0", "lbfgs", "mesh", False),
+    ("cuda:0", "lbfgs-zoom", "mesh", False),
     ("cpu", "adam", None, False),
     ("cpu", "lbfgs", None, False),
     ("cpu", "lbfgs-zoom", None, False),
 ])
 def test_path_choice(device, optimizer, mesh, graph):
-    """Graph replays only on a CUDA device with no mesh, for Adam and the
-    reference L-BFGS; the zoom L-BFGS, a mesh and the CPU run eagerly."""
+    """Graph replays on a CUDA device with no mesh, for every runner (the
+    zoom L-BFGS's iteration as three graphs); a mesh and the CPU run
+    eagerly."""
     assert S.runs_as_graph(device, optimizer, mesh) is graph
 
 

@@ -2,11 +2,22 @@
 
 The port's ``zoom_lbfgs`` is held against ``optax.lbfgs`` (memory 10, zoom
 line search, initial guess 1) on toy functions written in jnp and in torch,
-and the engine's ``lbfgs-zoom`` pyramid against the JAX engine's.
+and the engine's ``lbfgs-zoom`` pyramid against the JAX engine's. The line
+search's device state machine (``ops/cuda/zoom_ls.py``) is held bit for bit
+against a float32 numpy transcription of the search as the port ran it on
+the host before (the oracle below), over every search of the toys and over
+scripted ones; ``tests/fixtures/zoom_ls_searches.json`` records those
+searches' trials, which ``chip_smoke.py`` phase 2 replays through the
+kernel (``python tests/test_torch_zoom.py`` writes it anew).
 """
 
 import contextlib
 import io
+import json
+import math
+import re
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -21,6 +32,7 @@ from style_transfer_tpu.models.weights import random_params
 from style_transfer_tpu_torch import engine as TE
 from style_transfer_tpu_torch import step as S
 from style_transfer_tpu_torch import zoom_lbfgs as Z
+from style_transfer_tpu_torch.ops.cuda import zoom_ls as ZL
 from style_transfer_tpu_torch.utils.ema import ema_init
 
 torch.set_num_threads(2)
@@ -52,13 +64,18 @@ def _optax_trajectory(f, x0, max_ls):
     return out
 
 
-def _port_trajectory(f, x0, max_ls):
+def _value_and_grad(f):
     def value_and_grad(x):
         x = x.detach().requires_grad_(True)
         value = f(x)
         (g,) = torch.autograd.grad(value, x)
         return value.detach(), g
 
+    return value_and_grad
+
+
+def _port_trajectory(f, x0, max_ls):
+    value_and_grad = _value_and_grad(f)
     x = torch.tensor(x0)
     state = Z.zoom_lbfgs_init(x)
     out = []
@@ -113,6 +130,31 @@ def _huber():
     return fj, ft, (rng.uniform(20, 50, 10) * rng.choice([-1, 1], 10)).astype(np.float32)
 
 
+def _barrier():
+    """A log barrier at 1.2 with a pull toward 3: the first unit step lands
+    past the barrier, where the value is NaN, and the search takes half."""
+    def fj(x):
+        return jnp.sum((x - 3.0) ** 2 - jnp.log(1.2 - x))
+
+    def ft(x):
+        return torch.sum((x - 3.0) ** 2 - torch.log(1.2 - x))
+
+    return fj, ft, np.linspace(0.5, 1.0, 4).astype(np.float32)
+
+
+def _kink():
+    """A smoothed |x - 0.37|: no step ever meets the curvature criterion
+    away from the kink, and the second search zooms until its interval is
+    narrower than the step-size precision (1e-5) and takes the safe step."""
+    def fj(x):
+        return jnp.sum(jnp.sqrt((x - 0.37) ** 2 + 1e-12))
+
+    def ft(x):
+        return torch.sum(torch.sqrt((x - 0.37) ** 2 + 1e-12))
+
+    return fj, ft, np.zeros(1, np.float32)
+
+
 def _rel(x, ref):
     return np.abs(x - ref).max() / np.abs(ref).max()
 
@@ -131,6 +173,8 @@ CASES = {
     "several_zoom_steps": (_logcosh, 20, STEPS),
     "failed": (_logcosh, 4, STEPS),
     "zero_curvature_pair": (_huber, 3, STEPS),
+    "nan_trial": (_barrier, 20, STEPS),
+    "too_small_interval": (_kink, 20, STEPS),
 }
 
 
@@ -161,6 +205,11 @@ def test_zoom_lbfgs_matches_optax(case):
         for k in range(1, 9):
             assert got[k][3][k - 1] == ref[k][3][k - 1] == 0.0
         assert all(failed[:8]) and counts[:9] == [3] * 9
+    if case == "nan_trial":
+        # The first two searches reject the NaN at step 1 and take a shorter.
+        assert counts[:2] == [2, 2] and not any(failed)
+    if case == "too_small_interval":
+        assert failed[1] and counts[1] == 10 < max_ls and not failed[0]
 
 
 def test_lbfgs_direction_first_step():
@@ -184,29 +233,33 @@ def _port_run(content, style, init, noise=0.0):
     iteration; ``noise`` multiplies every gradient the optimizer sees by
     (1 + noise * N(0, 1)), in float64 before the float32 rounding."""
     gen = torch.Generator().manual_seed(0)
-    update, steps = S.zoom_lbfgs_update, []
+    make, run_trials, steps = S._value_and_grad, S.run_trials, []
 
     def perturb(g):
         n = torch.randn(g.shape, generator=gen, dtype=torch.float64)
         return (g.double() * (1 + noise * n)).float() if noise else g
 
-    def counting(state, image, value, g, value_and_grad):
-        def perturbed(x):
+    def perturbed(*args):
+        value_and_grad = make(*args)
+
+        def fn(x):
             v, gx = value_and_grad(x)
             return v, perturb(gx)
 
-        out = update(state, image, value, perturb(g), perturbed)
-        steps.append(out[1].linesearch_steps)
-        return out
+        return fn
+
+    def counting(*args):
+        steps.append(run_trials(*args))
+        return steps[-1]
 
     st = T.StyleTransfer(device="cpu", weights=PARAMS, callback_chunk=5)
     its = []
-    S.zoom_lbfgs_update = counting
+    S._value_and_grad, S.run_trials = perturbed, counting
     try:
         with contextlib.redirect_stdout(io.StringIO()):
             st.stylize(content, [style], callback=its.append, init=init, **KW)
     finally:
-        S.zoom_lbfgs_update = update
+        S._value_and_grad, S.run_trials = make, run_trials
     return np.asarray([i.loss for i in its]), steps, st
 
 
@@ -245,7 +298,8 @@ def test_engine_lbfgs_zoom_matches_jax(content_pil, style_pil):
 def test_zoom_runner_is_the_update_by_hand(content_pil, style_pil):
     """The runner is loss and gradient at the iterate -> ``zoom_lbfgs_update``
     -> EMA, with no clamp and ``step_size`` ignored, and returns the losses
-    at the iterates as one tensor."""
+    at the iterates as one tensor and each line search's evaluations as
+    another (``linesearch_steps``, int32)."""
     st = T.StyleTransfer(device="cpu", weights=PARAMS)
     cfg = S.StepConfig(step_size=123.0)
     image = TE._pil_to_nchw(content_pil, (48, 36))
@@ -254,7 +308,8 @@ def test_zoom_runner_is_the_update_by_hand(content_pil, style_pil):
     n = 4
     state = S.LoopState(image=image, opt=S.zoom_lbfgs_init(image),
                         ema=ema_init(image, cfg.avg_decay))
-    state, losses = S.make_lbfgs_zoom_runner(cfg)(st.params, consts, state, n)
+    runner = S.make_lbfgs_zoom_runner(cfg)
+    state, losses = runner(st.params, consts, state, n)
     assert losses.shape == (n,) and state.opt.count == n
     loss_fn = S.build_loss_fn(cfg)
 
@@ -268,4 +323,375 @@ def test_zoom_runner_is_the_update_by_hand(content_pil, style_pil):
         loss, g = value_and_grad(x)
         assert loss.item() == losses[k].item()
         x, opt = Z.zoom_lbfgs_update(opt, x, loss, g, value_and_grad)
+        assert runner.linesearch_steps[k].item() == opt.linesearch_steps.item()
+    assert runner.linesearch_steps.dtype == torch.int32
+    assert runner.linesearch_steps[0] > 1  # the first search zooms
     assert torch.equal(state.image, x)
+
+
+# ------------------------------------------------- the L-BFGS direction
+
+def test_lbfgs_direction_matches_optax_past_the_memory():
+    """``lbfgs_direction`` with its device count against optax's
+    ``scale_by_lbfgs`` (the direction is its output negated) on the same
+    iterates and gradients of a quadratic, memory 3 over 8 iterations, so
+    the circular memory wraps twice: directions to rtol 1e-5 of their max,
+    the memory's weights to 1e-5, the counts exact."""
+    rng = np.random.RandomState(3)
+    n = 12
+    q, _ = np.linalg.qr(rng.randn(n, n))
+    a = ((q * np.logspace(0, 1, n)) @ q.T).astype(np.float32)
+    b = rng.randn(n).astype(np.float32)
+    xs = np.cumsum(0.3 * rng.randn(8, n), axis=0).astype(np.float32)
+    grads = (xs @ a.T - b).astype(np.float32)
+    opt = optax.scale_by_lbfgs(memory_size=3)
+    jstate = opt.init(jnp.asarray(xs[0]))
+    state = Z.zoom_lbfgs_init(torch.from_numpy(xs[0]), memory_size=3)
+    for k in range(8):
+        ref, jstate = opt.update(jnp.asarray(grads[k]), jstate, jnp.asarray(xs[k]))
+        d, state = Z.lbfgs_direction(state, torch.from_numpy(grads[k]),
+                                     torch.from_numpy(xs[k]))
+        assert state.count.dtype == torch.int32 and int(state.count) == k + 1
+        np.testing.assert_allclose(-d.numpy(), np.asarray(ref), rtol=0,
+                                   atol=1e-5 * np.abs(np.asarray(ref)).max(), err_msg=k)
+        np.testing.assert_allclose(state.weights.numpy(), np.asarray(jstate.weights_memory),
+                                   rtol=1e-5, err_msg=k)
+
+
+# ------------------------------------------- the line search's state machine
+
+_f32 = np.float32
+_O = {k: _f32(v) for k, v in dict(
+    tol=0.0, increase=2.0, slope_rtol=1e-4, curv_rtol=0.9, approx_dec_rtol=1e-6,
+    approx_slope=2 * 1e-4 - 1.0, precision=1e-5, zero=0.0, one=1.0, two=2.0, three=3.0,
+    cubic_chk=0.2, quad_chk=0.1, inf=np.inf).items()}
+
+
+def _o_cubicmin(a, fa, fpa, b, fb, c, fc):
+    C = fpa
+    db = b - a
+    dc = c - a
+    denom = (db * dc) * (db * dc) * (db - dc)
+    v0 = fb - fa - C * db
+    v1 = fc - fa - C * dc
+    A = (dc * dc * v0 + (-(db * db)) * v1) / denom
+    B = ((-(dc * dc * dc)) * v0 + (db * db * db) * v1) / denom
+    radical = B * B - _O["three"] * A * C
+    return a + (-B + np.sqrt(radical)) / (_O["three"] * A)
+
+
+def _o_quadmin(a, fa, fpa, b, fb):
+    db = b - a
+    B = (fb - fa - fpa * db) / (db * db)
+    return a - fpa / (_O["two"] * B)
+
+
+def _o_decrease_error(stepsize, value, slope, value_init, slope_init):
+    err = value - value_init - _O["slope_rtol"] * stepsize * slope_init
+    approx = slope - _O["approx_slope"] * slope_init
+    delta = value - value_init - _O["approx_dec_rtol"] * np.abs(value_init)
+    err = np.minimum(np.maximum(approx, delta), err)
+    err = np.maximum(err, _O["zero"])
+    return _O["inf"] if np.isnan(err) else err
+
+
+def _o_curvature_error(slope, slope_init):
+    err = np.maximum(np.abs(slope) - _O["curv_rtol"] * np.abs(slope_init), _O["zero"])
+    return _O["inf"] if np.isnan(err) else err
+
+
+def _oracle(trial, value_init, slope_init, max_steps):
+    """The oracle: the port's line search as it ran on the host in float32
+    before the device state machine (its ``zoom_linesearch`` loop, each
+    trial's value and slope from ``trial(stepsize)``), transcribed. Returns
+    the step sizes it tried and its final scalars by ``LS_FIELDS`` name."""
+    O = _O
+    with np.errstate(all="ignore"):
+        low = high = cubic_ref = safe_stepsize = stepsize = prev_stepsize = O["zero"]
+        value_low = value_high = value_cubic_ref = safe_value = cur_value = value_init
+        prev_value = value_init
+        slope_low = slope_high = cur_slope = prev_slope = slope_init
+        decrease_error = O["inf"]
+        interval_found = done = failed = False
+        count, tried = 0, []
+        while not (done or failed):
+            if not interval_found:
+                prev_stepsize, prev_value, prev_slope = stepsize, cur_value, cur_slope
+                stepsize = O["one"] if count == 0 else O["increase"] * prev_stepsize
+                tried.append(stepsize)
+                cur_value, cur_slope = trial(stepsize)
+                decrease_error = _o_decrease_error(stepsize, cur_value, cur_slope,
+                                                   value_init, slope_init)
+                error = np.maximum(decrease_error, _o_curvature_error(cur_slope, slope_init))
+                if decrease_error <= O["tol"]:
+                    safe_stepsize, safe_value = stepsize, cur_value
+                set_high = decrease_error > O["zero"] or (cur_value >= prev_value
+                                                           and count > 0)
+                set_low = cur_slope >= O["zero"] and not set_high
+                if set_low:
+                    low, value_low, slope_low = stepsize, cur_value, cur_slope
+                    high, value_high, slope_high = prev_stepsize, prev_value, prev_slope
+                else:
+                    low, value_low, slope_low = prev_stepsize, prev_value, prev_slope
+                    high, value_high, slope_high = stepsize, cur_value, cur_slope
+                interval_found = set_high or set_low or error <= O["tol"]
+                done = bool(error <= O["tol"])
+                failed = count + 1 >= max_steps and not done
+                cubic_ref, value_cubic_ref = low, value_low
+            else:
+                delta = np.abs(high - low)
+                left, right = np.minimum(high, low), np.maximum(high, low)
+                too_small = delta <= O["precision"]
+                middle_cubic = _o_cubicmin(low, value_low, slope_low, high, value_high,
+                                           cubic_ref, value_cubic_ref)
+                middle_quad = _o_quadmin(low, value_low, slope_low, high, value_high)
+                if (left + O["cubic_chk"] * delta < middle_cubic
+                        < right - O["cubic_chk"] * delta):
+                    stepsize = middle_cubic
+                elif (left + O["quad_chk"] * delta < middle_quad
+                      < right - O["quad_chk"] * delta):
+                    stepsize = middle_quad
+                else:
+                    stepsize = (low + high) / O["two"]
+                tried.append(stepsize)
+                cur_value, cur_slope = trial(stepsize)
+                decrease_error = _o_decrease_error(stepsize, cur_value, cur_slope,
+                                                   value_init, slope_init)
+                error = np.maximum(decrease_error, _o_curvature_error(cur_slope, slope_init))
+                if decrease_error <= O["tol"] and cur_value < safe_value:
+                    safe_stepsize, safe_value = stepsize, cur_value
+                done = bool(error <= O["tol"])
+                set_high_to_middle = decrease_error > O["zero"] or cur_value >= value_low
+                set_high_to_low = (cur_slope * (high - low) >= O["zero"]
+                                   and not set_high_to_middle)
+                if set_high_to_middle or set_high_to_low:
+                    cubic_ref, value_cubic_ref = high, value_high
+                else:
+                    cubic_ref, value_cubic_ref = low, value_low
+                if set_high_to_middle:
+                    high, value_high, slope_high = stepsize, cur_value, cur_slope
+                elif set_high_to_low:
+                    high, value_high, slope_high = low, value_low, slope_low
+                if not set_high_to_middle:
+                    low, value_low, slope_low = stepsize, cur_value, cur_slope
+                failed = ((count + 1 >= max_steps
+                           or (too_small and safe_stepsize > O["zero"])) and not done)
+            count += 1
+        if failed and (safe_stepsize > O["zero"] or np.isinf(decrease_error)):
+            stepsize = safe_stepsize
+    flags = {"interval_found": interval_found, "done": done, "failed": failed}
+    final = dict(locals(), **{k: _f32(v) for k, v in flags.items()}, count=_f32(count))
+    return tried, {name: _f32(final[name]) for name in ZL.LS_FIELDS}
+
+
+def _state_machine(trial, value_init, slope_init, max_steps):
+    """The same search through ``ls_init`` and the plain ``ls_step_`` on
+    CPU tensors: the step sizes tried, the final state by field, and the
+    (value, slope) of every trial."""
+    state, go = ZL.ls_init(torch.tensor(value_init), torch.tensor(slope_init))
+    tried, trials = [], []
+    while True:
+        stepsize = state[ZL.STEPSIZE].numpy().copy()[()]
+        tried.append(stepsize)
+        trials.append(trial(stepsize))
+        ZL.ls_step_(state, go, *map(torch.tensor, trials[-1]), max_steps)
+        if not go:
+            return tried, dict(zip(ZL.LS_FIELDS, state.numpy())), trials
+
+
+def _same_bits(a, b):
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    return a.shape == b.shape and bool(((a.view(np.int32) == b.view(np.int32))
+                                        | (np.isnan(a) & np.isnan(b))).all())
+
+
+def _toy_searches():
+    """Every line search of the CASES toys' trajectories (the port's
+    iterates and directions, the state machine's trials): yields (name,
+    max_steps, a maker of its trial function, value_init, slope_init)."""
+    for case, (make, max_ls, _) in CASES.items():
+        _, ft, x0 = make()
+        x = torch.tensor(x0)
+        state = Z.zoom_lbfgs_init(x)
+        for k in range(STEPS):
+            xg = x.detach().requires_grad_(True)
+            value = ft(xg)
+            (g,) = torch.autograd.grad(value, xg)
+            d, state = Z.lbfgs_direction(state, g, x)
+
+            def trial(stepsize, x=x, d=d):
+                xt = (x + float(stepsize) * d).requires_grad_(True)
+                v = ft(xt)
+                (gt,) = torch.autograd.grad(v, xt)
+                return _f32(v.item()), _f32(torch.dot(gt, d).item())
+
+            yield (f"{case}/{k}", max_ls, lambda trial=trial: trial, _f32(value.item()),
+                   _f32(torch.dot(d, g).item()))
+            ls = Z.zoom_linesearch(_value_and_grad(ft), x, d, value.detach(), g, max_ls)
+            x = (x + ls.stepsize * d).detach()
+
+
+def _scripted(values, stepsize_fn=None):
+    """A trial function from a list of (value, slope), then a point that
+    ends any search (a decrease with zero slope); or one of the step."""
+    calls = []
+
+    def trial(stepsize):
+        calls.append(stepsize)
+        if stepsize_fn is not None:
+            return tuple(map(_f32, stepsize_fn(stepsize)))
+        k = len(calls) - 1
+        return tuple(map(_f32, values[k] if k < len(values) else (0.5, 0.0)))
+
+    return trial
+
+
+# (name, max_steps, trial function maker, value_init, slope_init)
+SCRIPTED = [
+    ("nan_value", 20, lambda: _scripted([(math.nan, math.nan), (math.nan, 0.3), (1.2, 0.4)]),
+     1.0, -1.0),
+    ("inf_slope", 20, lambda: _scripted([(0.8, math.inf), (0.7, -math.inf), (1.1, 2.0)]),
+     1.0, -1.0),
+    ("rising_limit_3", 3, lambda: _scripted([(2.0, 1.0)] * 3), 1.0, -1.0),
+    ("linear_limit_20", 20, lambda: _scripted(None, lambda s: (1.0 - 0.1 * s, -1.0)),
+     1.0, -1.0),
+]
+
+
+def _all_searches():
+    yield from _toy_searches()
+    for name, max_steps, make, v0, s0 in SCRIPTED:
+        yield name, max_steps, make, _f32(v0), _f32(s0)
+
+
+def test_ls_step_plain_matches_the_host_search_bit_for_bit():
+    """``ls_init`` and the plain ``ls_step_`` against the oracle, over every
+    search of the CASES toys (their real trials) and the scripted ones (a
+    NaN value, an infinite slope, the step limit at 3 and at 20): the same
+    step sizes tried and the same final scalars, bit for bit (NaN as NaN)."""
+    n, kinds = 0, set()
+    for name, max_steps, make, v0, s0 in _all_searches():
+        o_tried, o_final = _oracle(make(), v0, s0, max_steps)
+        tried, final, trials = _state_machine(make(), v0, s0, max_steps)
+        assert _same_bits(tried, o_tried), name
+        for field in ZL.LS_FIELDS:
+            assert _same_bits(final[field], o_final[field]), (name, field)
+        n += 1
+        if any(np.isnan(v) for v, _ in trials):
+            kinds.add("nan")
+        if final["failed"]:
+            kinds.add(f"limit_{max_steps}" if final["count"] == max_steps else "too_small")
+    assert n == len(CASES) * STEPS + len(SCRIPTED)
+    assert kinds >= {"nan", "limit_3", "limit_20", "too_small"}
+
+
+FIXTURE = Path(__file__).resolve().parent / "fixtures" / "zoom_ls_searches.json"
+
+
+def _record_searches():
+    """The fixture's searches: name, step limit, the starting (value,
+    slope) and each trial's (value, slope), as the state machine ran them."""
+    out = []
+    for name, max_steps, make, v0, s0 in _all_searches():
+        _, _, trials = _state_machine(make(), v0, s0, max_steps)
+        out.append({"name": name, "max_steps": max_steps, "init": [float(v0), float(s0)],
+                    "trials": [[float(v), float(s)] for v, s in trials]})
+    return {"fields": list(ZL.LS_FIELDS), "searches": out}
+
+
+def test_searches_fixture_is_the_toys():
+    """The committed fixture holds this file's searches: the same names,
+    limits and numbers of trials, and the same values to rtol 1e-6 (NaN and
+    inf where they are)."""
+    fixture = json.loads(FIXTURE.read_text())
+    fresh = _record_searches()
+    assert fixture["fields"] == fresh["fields"]
+    assert [(s["name"], s["max_steps"], len(s["trials"])) for s in fixture["searches"]] == [
+        (s["name"], s["max_steps"], len(s["trials"])) for s in fresh["searches"]]
+    for a, b in zip(fixture["searches"], fresh["searches"]):
+        np.testing.assert_allclose(np.array([a["init"]] + a["trials"]),
+                                   np.array([b["init"]] + b["trials"]), rtol=1e-6,
+                                   err_msg=a["name"])
+
+
+def test_kernel_field_order_is_the_plain_versions():
+    """``csrc/zoom_ls.cu``'s ``enum Field`` names the state's fields in
+    ``LS_FIELDS`` order (kValueInit is value_init, and so on)."""
+    src = (Path(ZL.__file__).resolve().parents[2] / "csrc" / "zoom_ls.cu").read_text()
+    body = re.search(r"enum Field \{(.*?)\};", src, re.S).group(1)
+    names = [re.sub(r"(?<!^)([A-Z])", r"_\1", k[1:]).lower()
+             for k in re.findall(r"\bk[A-Z]\w*", body)]
+    assert names == list(ZL.LS_FIELDS) + ["num_fields"]
+
+
+def test_ls_step_rejects_bad_inputs():
+    state, go = ZL.ls_init(torch.tensor(1.0), torch.tensor(-1.0))
+    v = torch.tensor(0.5)
+    for args in ((state[:-1], go, v, v), (state, go.float(), v, v),
+                 (state, go, v.double(), v), (state, go, v, torch.zeros(2))):
+        with pytest.raises(ValueError):
+            ZL.ls_step_(*args, 20)
+
+
+@pytest.mark.cuda
+def test_ls_kernel_matches_plain_on_card():
+    """The kernel against its plain version on the card, bit for bit on
+    every field and on ``go``, over the fixture's searches and
+    ``chip_smoke.py``'s crafted and random states."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (runs on the card)")
+    import chip_smoke
+
+    result = chip_smoke.zoom_ls_against_plain(torch.device("cuda", 0))
+    assert result["mismatches"] == 0 and result["launches"] > 0
+
+
+# ------------------------------------------------------ the runner's record
+
+def test_zoom_replay_counts_launches_per_evaluation():
+    """A graph runner's zoom replay (``step._Runner._replay``) plays the
+    head once, the trial while the search's ``go`` holds (at most
+    ``MAX_LINESEARCH_STEPS`` times) and the tail once, and moves each
+    graph's recorded launches to the counters once per play: B1 4 times per
+    loss evaluation (the head's and every trial's) and the line-search step
+    once per trial. Graphs stand in as recorders; the searches want 3, 1
+    and 25 trials."""
+    class Graph:
+        def __init__(self, name, then=None):
+            self.name, self.then = name, then
+
+        def replay(self):
+            played.append(self.name)
+            if self.then:
+                self.then()
+
+    phases, go, wants = S._ZoomPhases(S.StepConfig()), torch.tensor(True), [3, 1, 25]
+
+    def trial():  # the trials since the last head against this search's want
+        go.fill_(played[::-1].index("head") < wants[played.count("head") - 1])
+
+    phases._update = type("Update", (), {"search": type("Search", (), {"go": go})})()
+    runner = S._Runner(phases.step_, "lbfgs-zoom", phases=phases)
+    runner._graphs = [(Graph("head"), (4, 0, 0, 0)), (Graph("trial", trial), (4, 0, 0, 1)),
+                      (Graph("tail"), (0, 0, 0, 0))]
+    runner._loss = torch.tensor(2.5)
+    losses, played, start = torch.zeros(3), [], S._launch_counts()
+    try:
+        for k in range(3):
+            runner._replay(losses, k)
+        assert played == [p for n in (3, 1, Z.MAX_LINESEARCH_STEPS)
+                          for p in ["head"] + n * ["trial"] + ["tail"]]
+        evals = 3 + 3 + 1 + Z.MAX_LINESEARCH_STEPS
+        got = tuple(a - b for a, b in zip(S._launch_counts(), start))
+        assert got == (4 * evals, 0, 0, evals - 3)
+        assert losses.tolist() == [2.5] * 3
+    finally:
+        S._add_launches(tuple(b - a for a, b in zip(S._launch_counts(), start)))
+    assert S._launch_counts() == start
+
+
+if __name__ == "__main__":
+    rec = _record_searches()
+    FIXTURE.write_text(f'{{"fields": {json.dumps(rec["fields"])},\n"searches": [\n'
+                       + ",\n".join(map(json.dumps, rec["searches"])) + "\n]}\n")
+    print(f"wrote {FIXTURE}", file=sys.stderr)

@@ -3,6 +3,7 @@ workload) -> one JSON line.
 
 Usage: python3 tools/bench_pyramid_torch.py [END_SCALE=2896] [--label L]
            [--out FILE.json] [--precision f32|bf16] [--device cuda:0]
+           [--optimizer adam|lbfgs|lbfgs-zoom]
 
 The port's counterpart of ``tools/bench_pyramid.py``: the same synthetic
 content/style pair at the reference aspect (a 2896x2172 content and a
@@ -24,8 +25,10 @@ of the wall is ``overhead_wall``. ``phases`` groups the engine's
 in ``targets``; the indented rows nest inside their phase and are skipped);
 what no phase covers is ``untimed``. ``captures`` holds each scale's
 indented ``  capture@S`` row: the host time of capturing and instantiating
-its CUDA graph of the step, inside that scale's first chunk (absent where
-the engine runs eagerly: on the CPU). ``peak_mib`` is the scale's peak
+its CUDA graphs of the step (one; three for ``lbfgs-zoom``), inside that
+scale's first chunk (absent where the engine runs eagerly: on the CPU). A
+non-default ``--optimizer`` suffixes the metric name (``_lbfgs``,
+``_lbfgs_zoom``). ``peak_mib`` is the scale's peak
 device memory (``STIterate.gpu_ram``; 0 on the CPU). Per-scale lines go to
 stderr.
 """
@@ -43,7 +46,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 
 def run(end_scale, *, device="cuda:0", precision="f32", label="unlabeled",
-        iterations=None, initial_iterations=None):
+        iterations=None, initial_iterations=None, optimizer="adam"):
     """Runs the pyramid to ``end_scale`` and returns the record (iteration
     counts default to the engine's)."""
     import torch
@@ -68,7 +71,8 @@ def run(end_scale, *, device="cuda:0", precision="f32", label="unlabeled",
 
     phase_totals(reset=True)
     t0 = time.perf_counter()
-    st.stylize(content, [style], end_scale=end_scale, callback=cb, **its_kw)
+    st.stylize(content, [style], end_scale=end_scale, callback=cb, optimizer=optimizer,
+               **its_kw)
     total = time.perf_counter() - t0
 
     scales = {}
@@ -105,7 +109,8 @@ def run(end_scale, *, device="cuda:0", precision="f32", label="unlabeled",
         print("graph capture per scale (inside its first chunk): "
               + ", ".join(f"{k} {v:.3f}s" for k, v in captures.items()), file=sys.stderr)
     return {
-        "metric": "pyramid_wall",
+        "metric": "pyramid_wall" + ("" if optimizer == "adam"
+                                    else "_" + optimizer.replace("-", "_")),
         "value": round(total, 2),
         "unit": "s",
         "end_scale": end_scale,
@@ -128,9 +133,10 @@ def main(argv=None):
     p.add_argument("--out", default=None)
     p.add_argument("--precision", choices=("f32", "bf16"), default="f32")
     p.add_argument("--device", default="cuda:0")
+    p.add_argument("--optimizer", choices=("adam", "lbfgs", "lbfgs-zoom"), default="adam")
     args = p.parse_args(argv)
     record = run(args.end_scale, device=args.device, precision=args.precision,
-                 label=args.label)
+                 label=args.label, optimizer=args.optimizer)
     line = json.dumps(record)
     print(line, flush=True)
     if args.out:

@@ -1,18 +1,23 @@
-"""How far the reference L-BFGS trajectory is determined, graph and eager.
+"""How far an L-BFGS trajectory is determined, graph and eager.
 
 Usage: python3 tools/lbfgs_determinacy_torch.py [device=cuda:0] [seeds=6]
-    [iters=10] [sizes=96x128,384x512]
+    [iters=10] [sizes=96x128,384x512] [optimizer=lbfgs] [w2_grad=lyap]
+    [inits=uniform,gray] [eager_runs=2]
 
 For each init (``uniform``: ``bench.build_step``'s random image; ``gray``:
 the engine's gray init, 0.5 plus that draw over 255), each size (HxW) and
-each seed, (lbfgs, lyap) in FP32 runs ``iters`` iterations three times from
-the same state: once by the runner the engine takes on ``device`` (on the
-card, replays of a CUDA graph of the step) and twice by the eager runner.
-It prints, per init and size, the largest relative loss difference of each
-seed, graph against eager and eager against eager. Under cuDNN's default
+each seed, ``optimizer`` (``lbfgs`` or ``lbfgs-zoom``) with ``w2_grad`` in
+FP32 runs ``iters`` iterations from the same state once by the runner the
+engine takes on ``device`` (on the card, replays of CUDA graphs) and
+``eager_runs`` times by the eager runner. It prints, per init and size,
+the largest relative loss difference of each seed, graph against the first
+eager run and eager against eager (the largest pair), and the same two
+per iteration, the largest over the seeds. Under cuDNN's default
 algorithms two eager runs differ in rounding, and the L-BFGS trajectory
-magnifies it where its first, tiny step makes the first curvature pair
-(ROADMAP C); the second column says how far that goes without any graph.
+magnifies it, for the reference L-BFGS where its first, tiny step makes
+the first curvature pair (ROADMAP C); the eager column says how far that
+goes without any graph, and the per-iteration rows for how many
+iterations the trajectory stays determined.
 
 ``measure()`` returns ``{(init, (h, w)): (graph_vs_eager, eager_vs_eager)}``,
 each a list over the seeds.
@@ -31,43 +36,58 @@ from style_transfer_tpu_torch.step import (  # noqa: E402
     LoopState,
     lbfgs_init,
     make_lbfgs_runner,
+    make_lbfgs_zoom_runner,
+    zoom_lbfgs_init,
 )
 from style_transfer_tpu_torch.utils.ema import ema_init  # noqa: E402
 
 
-def gray_start(state):
+def gray_start(state, optimizer="lbfgs"):
     """``state`` with its image moved to the engine's gray init (0.5 plus
-    the image's uniform draw over 255) and fresh L-BFGS and EMA states."""
+    the image's uniform draw over 255) and fresh EMA and optimizer states
+    (``lbfgs`` or ``lbfgs-zoom``)."""
     image = state.image / 255.0 + 0.5
-    return LoopState(image=image, opt=lbfgs_init(image), ema=ema_init(image, 0.99))
+    init = zoom_lbfgs_init if optimizer == "lbfgs-zoom" else lbfgs_init
+    return LoopState(image=image, opt=init(image), ema=ema_init(image, 0.99))
 
 
 def _rel(a, b):
-    return float((np.abs(a - b) / np.abs(b)).max())
+    return np.abs(a - b) / np.abs(b)
 
 
-def measure(device="cuda:0", seeds=6, iters=10, sizes=((96, 128), (384, 512))):
+def measure(device="cuda:0", seeds=6, iters=10, sizes=((96, 128), (384, 512)),
+            optimizer="lbfgs", w2_grad="lyap", inits=("uniform", "gray"), eager_runs=2):
+    make = {"lbfgs": make_lbfgs_runner, "lbfgs-zoom": make_lbfgs_zoom_runner}[optimizer]
     out = {}
-    for init in ("uniform", "gray"):
+    for init in inits:
         for h, w in sizes:
-            ge, ee = [], []
+            ge, ee, ge_it, ee_it = [], [], np.zeros(iters), np.zeros(iters)
             for seed in range(seeds):
                 runner, params, consts, state = build_step(
-                    h, w, device=device, optimizer="lbfgs", w2_grad="lyap",
+                    h, w, device=device, optimizer=optimizer, w2_grad=w2_grad,
                     compute_dtype="f32", seed=seed)
                 if init == "gray":
-                    state = gray_start(state)
-                eager = make_lbfgs_runner(runner.cfg, eager=True)
+                    state = gray_start(state, optimizer)
+                eager = make(runner.cfg, eager=True)
                 runs = []
-                for run in (runner, eager, eager):
+                for run in (runner,) + (eager,) * eager_runs:
                     _, losses = run(params, consts, state, iters)
                     runs.append(losses.cpu().numpy().astype(np.float64))
-                ge.append(_rel(runs[0], runs[1]))
-                ee.append(_rel(runs[2], runs[1]))
+                g = _rel(runs[0], runs[1])
+                e = np.max([_rel(a, b) for i, b in enumerate(runs[1:])
+                            for a in runs[i + 2:]], axis=0)
+                ge.append(float(g.max()))
+                ee.append(float(e.max()))
+                ge_it, ee_it = np.maximum(ge_it, g), np.maximum(ee_it, e)
             out[(init, (h, w))] = (ge, ee)
-            print(f"{init} {w}x{h}, seeds 0-{seeds - 1}, iterations 1-{iters}: max rel loss "
-                  "diff graph against eager " + " ".join(f"{x:.1e}" for x in ge)
-                  + "; eager against eager " + " ".join(f"{x:.1e}" for x in ee), flush=True)
+            print(f"{optimizer} {w2_grad} {init} {w}x{h}, seeds 0-{seeds - 1}, iterations "
+                  f"1-{iters}: max rel loss diff graph against eager "
+                  + " ".join(f"{x:.1e}" for x in ge)
+                  + f"; eager against eager ({eager_runs} runs) "
+                  + " ".join(f"{x:.1e}" for x in ee), flush=True)
+            for name, it in (("graph against eager", ge_it), ("eager against eager", ee_it)):
+                print(f"  per iteration, largest over the seeds, {name}: "
+                      + " ".join(f"{x:.1e}" for x in it), flush=True)
     return out
 
 
@@ -80,7 +100,9 @@ def main(argv):
                   for s in kw.get("sizes", "96x128,384x512").split(","))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    measure(device, int(kw.get("seeds", 6)), int(kw.get("iters", 10)), sizes)
+    measure(device, int(kw.get("seeds", 6)), int(kw.get("iters", 10)), sizes,
+            kw.get("optimizer", "lbfgs"), kw.get("w2_grad", "lyap"),
+            tuple(kw.get("inits", "uniform,gray").split(",")), int(kw.get("eager_runs", 2)))
 
 
 if __name__ == "__main__":

@@ -17,9 +17,11 @@ from one more step run eagerly and profiled alone (the output says so).
 - device kernel ms/iter and the busy share (kernel time over the wall of
   as many iterations run just before without the profiler, whose own host
   time would lower it), and the same over the profiled run's own wall;
-- buckets: the NS kernels (every kernel of ``csrc/`` starts with
-  ``stt_nsk_``), cuDNN convolution forward, dgrad and wgrad, cuBLAS
-  GEMM/GEMV, layout copies (``nchwToNhwc``), elementwise/reduction, other;
+- buckets: the NS kernels (``csrc/ns_sqrtm.cu``'s kernels start with
+  ``stt_nsk_``), the zoom line search's step (``csrc/zoom_ls.cu``,
+  ``stt_zls_``; with ``optimizer=lbfgs-zoom``), cuDNN convolution forward,
+  dgrad and wgrad, cuBLAS GEMM/GEMV, layout copies (``nchwToNhwc``),
+  elementwise/reduction, other;
 - the top kernels, with TFLOP/s where the profiler counts the FLOPs of the
   op that launched them (the outermost counted op's FLOPs spread over the
   convolution and GEMM kernels inside it, by their time; its layout copies
@@ -44,6 +46,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 NS_PREFIX = "stt_nsk_"
 NS_BUCKET = "NS kernels (stt_nsk_)"
+LS_PREFIX = "stt_zls_"
+LS_BUCKET = "line-search step (stt_zls_)"
 NO_OP = "(no op)"
 _CONV_MARKS = ("fprop", "dgrad", "wgrad", "conv", "cudnn", "fft", "winograd")
 _BLAS_MARKS = ("gemm", "gemv", "cublas", "cutlass")
@@ -89,6 +93,8 @@ def _bucket(kernel, op):
     the step takes no weight gradient)."""
     if NS_PREFIX in kernel:
         return NS_BUCKET
+    if LS_PREFIX in kernel:
+        return LS_BUCKET
     k = kernel.lower()
     if "nchwtonhwc" in k or "nhwctonchw" in k:
         return "layout copies"
