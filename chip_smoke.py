@@ -164,7 +164,24 @@ each of which exits non-zero on failure:
     lbfgs-zoom B1 4 x the evaluations and the line-search kernel once per
     trial in each run); for (lbfgs-zoom, trace) also the ms/iter of a graph
     runner whose trial graph holds the plain line-search step in place of
-    its kernel.
+    its kernel;
+17. remat on the card (``--remat``, ``StepConfig.remat``): (a)
+    ``bench.build_step``'s (adam, trace) step with and without remat as
+    graph replays, 20 iterations, at 512x384 (losses and image bit for bit
+    under cuDNN's deterministic algorithms, within rtol 1e-3 under its
+    default ones) and 1448x1086 (within 1e-3), ms/iter and peak memory of
+    each; (b) phase 13's one-scale 2896x2172 legs, FP32 and bf16, with
+    ``--remat on``: peak memory below phase 13's legs (which ``--remat
+    auto`` ran without remat, as their traces must say), losses within rtol
+    1e-3 of theirs, 40 B1 launches each, ms/iter of each; (c)
+    ``tools/large_conv_probe_torch.py`` at 8192x6144 (conv1_2's
+    convolution, ReLU and max pooling on a 64-channel canvas past 2^31
+    elements, against the same ops on its halves) must pass; then at
+    8960x6720 (60.2 Mpx) ``--remat off`` (a subprocess) must end in CUDA's
+    out-of-memory error, and ``--remat auto`` must choose remat and run 5
+    iterations to finite losses, 20 B1 launches: its peak memory, ms/iter,
+    the predicted peak without remat, and whether PyTorch warned that cuDNN
+    refused a convolution. The phase's seconds are printed.
 
 On the card the engine, ``bench.build_step`` and the tools run every
 optimizer as graph replays (``step._Runner``): Adam and the reference
@@ -175,8 +192,8 @@ counts once per replay, so every launch check above counts the iterations
 (and trials) that ran, as with the eager runner.
 
 Everything but phase 9, the bf16 rows of phase 6, the bf16 output of
-phase 11, the bf16 leg of phase 13 and the bf16 bench of phase 15 runs in
-FP32 (TF32 off for matmuls and cuDNN). The weights are the
+phase 11, the bf16 legs of phases 13 and 17 and the bf16 bench of phase 15
+runs in FP32 (TF32 off for matmuls and cuDNN). The weights are the
 deterministic He-normal ``random_params(0)``. The last stdout line is ``{"ok": true, "device":
 {...}}``; the line before it lists the kernels, the one before that the
 card's name and power limit.
@@ -1618,6 +1635,7 @@ def _print_phase(tmp, content_path, style_path):
           f"{peak(bf16):.1f} MiB), 2 ranks sharing the card {_ms_last5(sharded):.2f} "
           f"ms/iter (rank peaks {rank_peaks} MiB); in the pyramid, FP32 with --web, "
           f"{_ms_last5(top):.2f} ms/iter, peak {peak(top):.1f} MiB")
+    return legs
 
 
 def _more_styles(tmp):
@@ -1910,6 +1928,193 @@ def _graph_phase():
             graph = eager = det = d_state = x_state = None
 
 
+# Phase 17: (a) bench.build_step's (adam, trace) step with and without remat
+# at these (h, w), the first also bit for bit under deterministic cuDNN.
+REMAT_SIZES = [(384, 512), (1086, 1448)]
+# (c): a canvas that the FP32 step without remat cannot hold and with remat
+# can, with a margin each way: 8960x6720 from the 640x480 content (60.2
+# Mpx; relu1_1 holds 3.9e9 elements, past 2^31). First the trunk's
+# full-resolution ops past 2^31 elements are held against the same ops on
+# halves (tools/large_conv_probe_torch.py, at 8192x6144).
+REMAT_BIG = 8192
+REMAT_BIG_ITERS = 5
+OOM_MESSAGES = ("torch.OutOfMemoryError", "CUDA out of memory")
+
+
+def _peak_mib(its):
+    return max(i["gpu_ram"] for i in its) / 2**20
+
+
+def _trace_remat(tmp, label):
+    """The ``remat`` record of a CLI run's trace: one entry per scale."""
+    return json.loads((tmp / f"trace_{label}.json").read_text())["remat"]
+
+
+def _remat_same_numbers():
+    """Phase 17 (a): the graphed step with remat against without, under
+    cuDNN's default algorithms (within CPU_RTOL, ms/iter of each) and at
+    REMAT_SIZES[0] under its deterministic algorithms (losses and image bit
+    for bit)."""
+    import numpy as np
+    import torch
+
+    from style_transfer_tpu_torch.bench import build_step
+
+    device = torch.device(DEVICE)
+
+    def run(h, w, remat):
+        runner, params, consts, state0 = build_step(h, w, device=device, remat=remat)
+        state, losses, ms, peak, launches, _ = _run_timed(runner, params, consts, state0)
+        if DEVICE != "cpu" and launches["ns_sqrtm_yz"] != 4 * (GRAPH_ITERS - 5):
+            raise AssertionError(f"remat={remat} at {w}x{h}: launches {launches}")
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"remat={remat} at {w}x{h}: non-finite loss")
+        return state.image, losses, ms, peak
+
+    for i, (h, w) in enumerate(REMAT_SIZES):
+        _, off, off_ms, off_peak = run(h, w, False)
+        _, on, on_ms, on_peak = run(h, w, True)
+        rel = float((np.abs(on - off) / np.abs(off)).max())
+        same = ""
+        if i == 0:
+            torch.backends.cudnn.deterministic = True
+            try:
+                d_off, l_off = run(h, w, False)[:2]
+                d_on, l_on = run(h, w, True)[:2]
+            finally:
+                torch.backends.cudnn.deterministic = False
+            bits = bool((l_on == l_off).all()) and torch.equal(d_on, d_off)
+            same = f"; deterministic cuDNN: losses and image bit-identical {bits}"
+            if not bits:
+                raise AssertionError(f"remat at {w}x{h}: not bit-identical under "
+                                     "deterministic cuDNN")
+        print(f"remat against none at {w}x{h} (graph replays, {GRAPH_ITERS} iterations): "
+              f"ms/iter {on_ms:.2f} against {off_ms:.2f} (x{on_ms / off_ms:.3f}), peak MiB "
+              f"{on_peak:.1f} against {off_peak:.1f}; default algorithms: max rel loss "
+              f"diff {rel:.2e} (limit {CPU_RTOL}){same}")
+        if rel > CPU_RTOL:
+            raise AssertionError(f"remat at {w}x{h}: losses disagree")
+
+
+def _remat_print_legs(tmp, content_path, style_path, print_legs):
+    """Phase 17 (b): phase 13's one-scale 2896x2172 legs with ``--remat on``
+    against phase 13's own, which ``--remat auto`` ran without remat."""
+    import numpy as np
+
+    w, h = PRINT_PYRAMID[-1]
+    one = ["--min-scale", str(PRINT_SCALE), "--end-scale", str(PRINT_SCALE), "-ii", "10",
+           "--align", "1", "--callback-chunk", "5"]
+    for label, flags in (("print-f32", []), ("print-bf16", ["--precision", "bf16"])):
+        ref = print_legs[label]
+        if [r["remat"] for r in _trace_remat(tmp, label)] != [False]:
+            raise AssertionError(f"{label}: --remat auto rematerialised at {w}x{h}")
+        its, _, launches = _run_cli(tmp, content_path, style_path, f"{label}-remat",
+                                    one + flags + ["--remat", "on"])
+        _check_pyramid(its, None, [(w, h)], iters=10)
+        if [r["remat"] for r in _trace_remat(tmp, f"{label}-remat")] != [True]:
+            raise AssertionError(f"{label}: --remat on did not rematerialise")
+        if DEVICE != "cpu" and launches["ns_sqrtm_yz"] != 40:
+            raise AssertionError(f"{label} --remat on: launches {launches}")
+        losses = np.array([i["loss"] for i in its])
+        ref_losses = np.array([i["loss"] for i in ref])
+        rel = float((np.abs(losses - ref_losses) / np.abs(ref_losses)).max())
+        on, off = _peak_mib(its), _peak_mib(ref)
+        print(f"  {w}x{h} {label[6:].upper()} --remat on: {_ms_last5(its):.2f} ms/iter "
+              f"against {_ms_last5(ref):.2f} without (x{_ms_last5(its) / _ms_last5(ref):.3f}); "
+              f"peak {on:.1f} MiB against {off:.1f} ({on * 2**20 / (w * h):.0f} against "
+              f"{off * 2**20 / (w * h):.0f} bytes per pixel); max rel loss diff {rel:.2e} "
+              f"(limit {CPU_RTOL}); B1 launches {launches['ns_sqrtm_yz']}")
+        if rel > CPU_RTOL:
+            raise AssertionError(f"{label} --remat on: losses disagree with phase 13's")
+        if DEVICE != "cpu" and not on < off:
+            raise AssertionError(f"{label} --remat on: peak {on:.1f} MiB not below {off:.1f}")
+
+
+def _cli_process(tmp, content_path, style_path, label, flags):
+    """The CLI on DEVICE as a subprocess of its own (a fresh process, with
+    the CLI's own allocator settings), phase 4's images and weights, output
+    and trace named by ``label``. Returns (the finished process, seconds)."""
+    import os
+
+    argv = [sys.executable, "-m", "style_transfer_tpu_torch.cli", str(content_path),
+            str(style_path), "--vgg-weights", str(tmp / "vgg19_random0.npz"), "--devices",
+            DEVICE, "-o", str(tmp / f"out_{label}.png"), "--trace",
+            str(tmp / f"trace_{label}.json"), *flags]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=tmp, env=dict(os.environ, PYTHONPATH=str(REPO)),
+                          capture_output=True, text=True, timeout=900)
+    return proc, time.perf_counter() - t0
+
+
+def _remat_big_canvas(tmp, content_path, style_path):
+    """Phase 17 (c): the large-tensor probe must pass; then at REMAT_BIG's
+    canvas the CLI (subprocesses) with ``--remat off`` must end in CUDA's
+    out-of-memory error, and with ``--remat auto`` choose remat and run
+    REMAT_BIG_ITERS iterations to finite losses, B1 launched 4 times each
+    (the trace's ``kernel_launches``)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from large_conv_probe_torch import LARGE_CONV_WARNING
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    probe = subprocess.run(
+        [sys.executable, str(REPO / "tools" / "large_conv_probe_torch.py"), "6144", "8192"],
+        capture_output=True, text=True, timeout=300)
+    lines = probe.stdout.strip().splitlines()
+    print(f"  large-tensor probe at 8192x6144 (1 x 64 x 6144 x 8192, FP32): exit "
+          f"{probe.returncode}, {lines[-1] if lines else probe.stderr[-1500:]}")
+    if probe.returncode != 0:
+        raise AssertionError("the card does not run the trunk's ops past 2^31 elements")
+    flags = ["--min-scale", str(REMAT_BIG), "--end-scale", str(REMAT_BIG), "-ii",
+             str(REMAT_BIG_ITERS), "--align", "1", "--callback-chunk", "1"]
+    off, secs = _cli_process(tmp, content_path, style_path, "remat-off-big",
+                             flags + ["--remat", "off"])
+    oom = off.returncode != 0 and any(m in off.stderr for m in OOM_MESSAGES)
+    print(f"  --remat off at --end-scale {REMAT_BIG}: exit {off.returncode} in {secs:.1f} s, "
+          f"out of memory {oom}")
+    if not oom:
+        raise AssertionError(f"--remat off at {REMAT_BIG}: not CUDA's out-of-memory error: "
+                             f"{off.stderr[-2000:]}")
+    auto, secs = _cli_process(tmp, content_path, style_path, "remat-auto-big",
+                              flags + ["--remat", "auto"])
+    if auto.returncode != 0:
+        raise AssertionError(f"--remat auto at {REMAT_BIG}: exit {auto.returncode}: "
+                             f"{auto.stderr[-3000:]}")
+    trace = json.loads((tmp / "trace_remat-auto-big.json").read_text())
+    (rec,), its, launches = trace["remat"], trace["iterates"], trace["kernel_launches"]
+    cw, ch = rec["w"], rec["h"]
+    losses = np.array([i["loss"] for i in its])
+    ms = (its[-1]["time"] - its[1]["time"]) / (len(its) - 2) * 1e3
+    predicted = rec["predicted_peak_mib"]
+    predicted = "none (the CPU's rule)" if predicted is None else f"{predicted:.0f} MiB"
+    print(f"  --remat auto at {cw}x{ch} ({cw * ch / 1e6:.1f} Mpx; relu1_1 holds "
+          f"{64 * cw * ch} elements, over 2^31 {64 * cw * ch > 2**31}), {secs:.1f} s: "
+          f"remat {rec['remat']}, predicted peak without {predicted}, peak "
+          f"{_peak_mib(its):.1f} MiB ({_peak_mib(its) * 2**20 / (cw * ch):.0f} bytes per "
+          f"pixel), {ms:.2f} ms/iter over iterations 3-{len(its)}, losses "
+          f"{losses[0]:.6g} -> {losses[-1]:.6g}; launches {launches}; cuDNN refused a "
+          f"large convolution {LARGE_CONV_WARNING in auto.stderr}")
+    if not rec["remat"]:
+        raise AssertionError(f"--remat auto did not rematerialise at {cw}x{ch}")
+    if len(its) != REMAT_BIG_ITERS or not np.isfinite(losses).all():
+        raise AssertionError(f"--remat auto at {cw}x{ch}: iterates {losses}")
+    if DEVICE != "cpu" and launches["ns_sqrtm_yz"] != 4 * REMAT_BIG_ITERS:
+        raise AssertionError(f"--remat auto at {cw}x{ch}: launches {launches}")
+
+
+def _remat_phase(tmp, content_path, style_path, print_legs):
+    """Phase 17 (see the module docstring)."""
+    t0 = time.perf_counter()
+    _remat_same_numbers()
+    _remat_print_legs(tmp, content_path, style_path, print_legs)
+    _remat_big_canvas(tmp, content_path, style_path)
+    print(f"phase 17 (remat on the card) took {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     if not (REPO / "style_transfer_tpu_torch" / "__init__.py").is_file():
         print("chip_smoke.py: style_transfer_tpu_torch not found beside this "
@@ -1962,13 +2167,15 @@ def main():
             phase = "the sharded path"
             _sharded_phase(tmp, content_path, style_path, main_path)
             phase = "config #5 at print size"
-            _print_phase(tmp, content_path, style_path)
+            print_legs = _print_phase(tmp, content_path, style_path)
             phase = "configs #3 and #4"
             _configs_phase(tmp, content_path, style_path)
             phase = "the measurement tools on the card"
             _tools_phase()
             phase = "graph against eager"
             _graph_phase()
+            phase = "remat on the card"
+            _remat_phase(tmp, content_path, style_path, print_legs)
     except Exception:
         traceback.print_exc()
         print(f"chip_smoke.py: FAILED in phase: {phase}", file=sys.stderr)

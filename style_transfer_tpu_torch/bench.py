@@ -61,13 +61,14 @@ def _nchw(arr, device):
 
 
 def build_step(h, w, *, device="cuda:0", w2_grad="trace", compute_dtype="auto",
-               optimizer="adam", seed=0, eager=False, **cfg_kw):
+               optimizer="adam", seed=0, eager=False, remat=False, **cfg_kw):
     """The step at (h, w) and its inputs, as ``__graft_entry__._build``
     makes them: a ``RandomState(seed)`` image and content of (h, w) and a
     64x64 style (drawn in that order, NHWC), ``random_params(0)``, the
     content features at the content layers and a ``w2_target`` per style
     layer, the optimizer's initial state and an EMA of decay 0.99.
-    ``cfg_kw`` goes to ``StepConfig``. The runner runs with TF32 off, as
+    ``remat`` and ``cfg_kw`` go to ``StepConfig`` (``remat=True``
+    rematerialises the trunk). The runner runs with TF32 off, as
     ``stylize`` does, and is the one the engine takes on ``device``: on the
     card, Adam and L-BFGS replay a CUDA graph of the step (``eager=True``
     runs the same body eagerly, for a comparison).
@@ -82,7 +83,7 @@ def build_step(h, w, *, device="cuda:0", w2_grad="trace", compute_dtype="auto",
         raise RuntimeError(f"device {str(device)!r} requested but CUDA is not available")
     make_runner, opt_init = _OPTIMIZERS[optimizer]
     cfg = StepConfig(w2_grad=w2_grad, compute_dtype=_resolve_compute_dtype(compute_dtype),
-                     **cfg_kw)
+                     remat=remat, **cfg_kw)
     params = params_from_jax(random_params(0), device)
     if cfg.compute_dtype is not None:
         params = cast_params(params, cfg.compute_dtype)

@@ -14,7 +14,10 @@ the CPU when ``--devices`` names it) and starts nothing. ``--profile DIR``
 records a ``torch.profiler`` trace of the run into DIR. Mid-run image saves
 run on a writer thread; ``--checkpoint``/``--resume`` continue an
 interrupted run; ``--web`` serves a live preview; ``--precision bf16`` runs
-the VGG trunk in bf16.
+the VGG trunk in bf16; ``--remat`` rematerialises it in the backward
+(``auto``: where the card would not hold the step without it). The trace
+records each scale's choice under ``remat`` and, on one device, the NS
+kernels' launches under ``kernel_launches``.
 
     style-transfer-tpu-torch content.jpg style.jpg -o out.png
     style-transfer-tpu-torch content.jpg style.jpg --devices 2
@@ -235,6 +238,9 @@ def build_parser(stylize_fn):
                    help="W2 sqrt-term gradient: analytic trace VJP (exact, "
                         "faster) or the reference's iterative Lyapunov "
                         "backward")
+    p.add_argument("--remat", type=str, default="auto",
+                   choices=["auto", "on", "off"],
+                   help="rematerialize the trunk in backward (memory vs compute)")
     p.add_argument("--vgg-weights", type=str, default=None,
                    help="path to VGG-19 weights (.npz native or torchvision .pth)")
     p.add_argument("--align", **arg_info("align"),
@@ -317,6 +323,11 @@ def _profiler(out_dir, device):
 
 
 def main(argv=None):
+    # PyTorch's allocator with expandable segments, unless the caller chose
+    # one (before CUDA starts; ranks started here inherit it): at canvases
+    # near the card's memory its fixed segments lose a third of the card to
+    # fragmentation (README, "--remat").
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     from .engine import StyleTransfer  # deferred: torch import
     from .parallel import multihost
 
@@ -360,20 +371,24 @@ def _rank_run(mesh, args):
             out.close()
 
 
+def _kernel_launches():
+    """This process's launches of the NS kernels so far."""
+    from .ops.cuda import ns_sqrtm as K
+
+    return {k: getattr(K, k).launches for k in ("ns_sqrtm_yz", "ns_sqrtm", "lyap_bwd")}
+
+
 def _rank_report(mesh, st):
     """Every rank's device, peak memory, kernel launches and time in the
     halo exchanges and all-reduces, gathered for rank 0's trace."""
     import torch.distributed as dist
-
-    from .ops.cuda import ns_sqrtm as K
 
     stats = mesh.stats
     mine = {
         "rank": mesh.rank, "device": str(mesh.device), "grid": list(mesh.grid),
         "backend": mesh.backend,
         "peak_memory": peak_device_ram(st.device),
-        "kernel_launches": {k: getattr(K, k).launches
-                            for k in ("ns_sqrtm_yz", "ns_sqrtm", "lyap_bwd")},
+        "kernel_launches": _kernel_launches(),
         "halo_s": stats.halo_s, "halo_calls": stats.halo_calls,
         "reduce_s": stats.reduce_s, "reduce_calls": stats.reduce_calls,
     }
@@ -429,6 +444,7 @@ def _run(args, device, mesh=None):
         w2_grad=args.w2_grad,
         compute_dtype=args.precision,
         callback_chunk=args.callback_chunk,
+        remat={"auto": None, "on": True, "off": False}[args.remat],
         mesh=mesh,
     )
     st.seed(args.random_seed)
@@ -462,6 +478,10 @@ def _run(args, device, mesh=None):
             web_interface.close()
 
     trace = callback.get_trace() if rank0 else None
+    if rank0:
+        trace["remat"] = st.remat_scales
+    if mesh is None:
+        trace["kernel_launches"] = _kernel_launches()
     if mesh is not None:
         ranks = _rank_report(mesh, st)
         if rank0:

@@ -17,7 +17,11 @@ array. The VGG trunk runs in FP32 by default or in bf16
 (``compute_dtype``); everything else runs in FP32: on CUDA, ``stylize``
 turns TF32 off for matmuls and cuDNN convolutions, because the
 Newton-Schulz square root diverges under single-pass low-precision products
-and parity with the reference needs FP32 convolutions.
+and parity with the reference needs FP32 convolutions. ``remat`` (the JAX
+engine's) rematerialises the trunk in the backward at the scales that need
+it, so that one card holds a canvas whose trunk activations do not fit
+whole; under ``remat=None`` a CUDA device decides by the card's measured
+peak per pixel (``auto_remat``).
 
 With a ``mesh`` (``parallel/mesh.py``) the engine is one rank of a sharded
 run: every rank calls ``stylize`` with the same arguments, holds its slab of
@@ -52,6 +56,7 @@ import math
 import os
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -61,7 +66,14 @@ from PIL import Image
 from .models import weights as W
 from .models.vgg import cast_params, extract_features, fp32_math
 from .ops import losses as L
-from .parallel.mesh import any_rank_stops, broadcast, gather_image, shard_image
+from .parallel.mesh import (
+    all_reduce_,
+    any_rank_stops,
+    broadcast,
+    gather_image,
+    largest_slab,
+    shard_image,
+)
 from .step import (
     AdamState,
     LBFGSState,
@@ -80,7 +92,8 @@ from .utils.ema import EMAState, ema_get, ema_init
 from .utils.scales import align_size, gen_scales, shard_align_size, size_to_fit
 from .utils.trace import STIterate, peak_device_ram, reset_peak_device_ram
 
-__all__ = ["StyleTransfer", "phase_totals", "tensor_to_image"]
+__all__ = ["StyleTransfer", "auto_remat", "phase_totals", "predicted_peak_bytes",
+           "tensor_to_image"]
 
 _DEBUG_TIMING = bool(os.environ.get("STT_DEBUG_TIMING"))
 
@@ -162,6 +175,39 @@ def _from_nhwc(arr, device):
     return x.movedim(-1, -3).contiguous().to(device)
 
 
+# Peak device memory per pixel of the graphed Adam step without remat, by
+# trunk dtype (None: FP32), at 2896x2172: `tools/remat_memory_torch.py
+# sizes=2172x2896` on an NVIDIA H100 80GB HBM3 at a 700 W power limit
+# (PERF.md §6). The peak grows with the pixels.
+NO_REMAT_BYTES_PER_PIXEL = {None: 1818.0, torch.bfloat16: 1150.0}
+# remat=None rematerialises a scale whose predicted no-remat peak exceeds
+# this share of the device's memory.
+REMAT_MEMORY_SHARE = 0.9
+# Off CUDA, remat=None keeps the JAX engine's rule (its ``auto_remat``):
+# rematerialise a canvas above 14 Mpx.
+JAX_REMAT_PIXELS = 14_000_000
+
+
+def predicted_peak_bytes(h: int, w: int, compute_dtype=None, mesh=None) -> float:
+    """The predicted peak device memory of the step without remat on an h x
+    w canvas: of its largest slab under a ``mesh`` (ranks that share one
+    device are not summed)."""
+    if mesh is not None:
+        h, w = largest_slab(h, w, mesh)
+    return NO_REMAT_BYTES_PER_PIXEL[compute_dtype] * h * w
+
+
+def auto_remat(h: int, w: int, compute_dtype=None, total_memory=None, mesh=None) -> bool:
+    """``remat=None``'s choice for an h x w canvas. With ``total_memory``
+    (a CUDA device's bytes): whether ``predicted_peak_bytes`` exceeds
+    ``REMAT_MEMORY_SHARE`` of it. Without (the CPU): the JAX engine's rule
+    on the canvas."""
+    if total_memory is None:
+        return h * w > JAX_REMAT_PIXELS
+    return (predicted_peak_bytes(h, w, compute_dtype, mesh)
+            > REMAT_MEMORY_SHARE * total_memory)
+
+
 def _resolve_compute_dtype(compute_dtype):
     """'auto' | 'f32' | 'float32' | None -> None (FP32 trunk); 'bf16' |
     'bfloat16' -> torch.bfloat16. The JAX package's 'auto' picks bf16 only
@@ -190,6 +236,12 @@ class StyleTransfer:
         'bf16'/'bfloat16'.
       callback_chunk: iterations per host sync. Telemetry is emitted per
         iteration; wall-times within a chunk are interpolated.
+      remat: rematerialise the VGG trunk in the backward (a memory tool:
+        one more trunk forward per iteration, for a lower peak): None
+        decides per scale (``auto_remat``: on a CUDA device when the
+        predicted peak without it exceeds 90% of the device's memory, on
+        the CPU above 14 Mpx, the JAX engine's rule), or a bool.
+        ``remat_scales`` records each scale's choice.
       mesh: this process's ``parallel.mesh.Mesh`` for a sharded run (its
         device replaces ``device``), or None.
     """
@@ -205,8 +257,15 @@ class StyleTransfer:
         w2_grad: str = "trace",
         compute_dtype="auto",
         callback_chunk: int = 50,
+        remat: Optional[bool] = None,
         mesh=None,
     ):
+        if remat not in (None, True, False):
+            raise ValueError(f"remat must be None, True or False, not {remat!r}")
+        self.remat = remat
+        # Each scale's {"w", "h", "remat", "predicted_peak_mib"} (the
+        # predicted no-remat peak: None where the rule did not decide).
+        self.remat_scales = []
         self.mesh = mesh
         self._scale_mesh = None  # the mesh placed on the current canvas
         self.device = torch.device(device if mesh is None else mesh.device)
@@ -348,6 +407,31 @@ class StyleTransfer:
         if self._params_cast is None:
             self._params_cast = cast_params(self.params, self.compute_dtype)
         return self._params_cast
+
+    def _scale_remat(self, ch, cw):
+        """Whether the current scale (a ch x cw canvas) rematerialises the
+        trunk, recorded in ``remat_scales``. Under a mesh the ranks agree
+        (one all-reduce), so that they run the same segments."""
+        predicted = None
+        if self.remat is not None:
+            remat = self.remat
+        elif self.device.type == "cuda":
+            total = torch.cuda.get_device_properties(self.device).total_memory
+            remat = auto_remat(ch, cw, self.compute_dtype, total, self._scale_mesh)
+            predicted = predicted_peak_bytes(ch, cw, self.compute_dtype,
+                                             self._scale_mesh) / 2**20
+            if self.mesh is not None:
+                flag = torch.tensor([float(remat)], device=self.device)
+                remat = bool(all_reduce_(flag, self.mesh, op="max").item())
+        else:
+            remat = auto_remat(ch, cw)
+        self.remat_scales.append({"w": cw, "h": ch, "remat": remat,
+                                  "predicted_peak_mib": predicted})
+        if remat:
+            print(f"Rematerialising the trunk at {cw}x{ch}"
+                  + ("" if predicted is None else
+                     f" (predicted peak without: {predicted:.0f} MiB)"))
+        return remat
 
     def _init_image(self, init, content_image, style_images, style_weights, hw):
         ch, cw = hw
@@ -535,6 +619,7 @@ class StyleTransfer:
                 raise ValueError("style_images and style_weights must have the same length")
 
             scales = gen_scales(min_scale, end_scale)
+            self.remat_scales = []
             resume_state = None
             start_scale_idx = 0
             if resume and checkpoint and Path(checkpoint).is_file():
@@ -602,6 +687,7 @@ class StyleTransfer:
                             step_size=step_size,
                             avg_decay=avg_decay,
                             compute_dtype=self.compute_dtype,
+                            remat=self._scale_remat(ch, cw),
                         )
                         actual_its = (initial_iterations if scale == scales[0]
                                       else iterations)

@@ -16,7 +16,12 @@ upcast every tap to FP32.
 * minimum-input-size guard of 2^(#pools <= last tapped layer);
 * with a ``mesh`` (``parallel/mesh.py``, placed on the canvas) the input is
   this rank's slab, and each conv pads it through ``halo_pad``: the
-  neighbours' rows and columns inside, the pad above at the global border.
+  neighbours' rows and columns inside, the pad above at the global border;
+* with ``remat`` the trunk runs in segments under
+  ``torch.utils.checkpoint``, the port of the JAX step's ``jax.checkpoint``
+  around the trunk: one wrapping of the whole trunk would recompute every
+  activation at once in the backward and keep most of the peak, so the
+  segments end at the pools and the taps.
 
 Tensors here are NCHW; the JAX package's are NHWC, so tests comparing the
 two transpose at the boundary.
@@ -28,6 +33,7 @@ from typing import Sequence
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.pooling import POOLING_SCALES, pool2x2, replicate_pad2d
 from ..parallel.mesh import halo_pad
@@ -43,6 +49,9 @@ __all__ = [
     "cast_params",
     "extract_features",
     "fp32_math",
+    "REMAT_DEFAULT",
+    "REMAT_GRANULARITIES",
+    "remat_segment_ends",
 ]
 
 # Key for the raw (pre-normalization) input image in the feats dict.
@@ -115,38 +124,51 @@ def cast_params(params, dtype):
     return {k: v.to(dtype) for k, v in params.items()}
 
 
-def extract_features(params, image, layers: Sequence[int], pooling: str = "max",
-                     compute_dtype=None, mesh=None):
-    """Run the VGG-19 trunk up to the last requested layer.
+# Where the rematerialised trunk ends its checkpointed segments (see
+# ``extract_features``), by granularity: each names the layers after which
+# a segment ends; the last layer always ends one. ``remat=True`` takes
+# REMAT_DEFAULT; the others are kept for ``tools/remat_memory_torch.py``,
+# which measures each one's peak memory and ms/iter (PERF.md §6).
+REMAT_GRANULARITIES = ("block", "tap", "conv", "whole")
+REMAT_DEFAULT = "block"
 
-    Args:
-      params: dict of ``conv{i}_kernel`` (OIHW) / ``conv{i}_bias`` tensors;
-        for a bf16 trunk pass them already cast (``cast_params``).
-      image: NCHW float image in [0, 1] (sRGB).
-      layers: torchvision feature indices to tap (sorted set semantics).
-      pooling: 'max' | 'average' | 'l2'.
-      compute_dtype: dtype of the trunk (``torch.bfloat16``), or None for
-        the image's own (FP32).
-      mesh: the mesh placed on the whole image's canvas when ``image`` is
-        this rank's slab of it, else None.
 
-    Returns:
-      dict mapping ``INPUT`` (-1) -> the raw image and each tapped index ->
-      its NCHW activation, in the trunk's dtype.
-    """
+def remat_segment_ends(layers: Sequence[int], granularity: str = REMAT_DEFAULT):
+    """The sorted layer indices after which the rematerialised trunk ends a
+    segment, for the taps ``layers``:
+
+    * ``"block"``: after every pool, so that the backward keeps the taps
+      and the pools' outputs and recomputes at most one conv block between
+      two of them;
+    * ``"tap"``: at the taps only, so that the backward keeps the taps;
+    * ``"conv"``: after every ReLU, a conv unit each (a pool joins the unit
+      after it);
+    * ``"whole"``: one segment, the JAX package's ``jax.checkpoint`` around
+      the whole trunk.
+
+    Every granularity ends a segment at every tap as well, so that each tap
+    is a segment's output."""
     layers = sorted(set(int(l) for l in layers))
     last = layers[-1]
-    h, w = image.shape[2:4] if mesh is None else mesh.canvas
-    mins = min_input_size(layers)
-    if min(h, w) < mins:
-        raise ValueError(f"Input is {h}x{w} but must be at least {mins}x{mins}")
+    if granularity == "block":
+        ends = {i for i in POOL_INDICES if i < last}
+    elif granularity == "tap":
+        ends = set()
+    elif granularity == "conv":
+        ends = {i for i in range(last) if i not in _CONV_SET and i not in _POOL_SET}
+    elif granularity == "whole":
+        return [last]
+    else:
+        raise ValueError(f"unknown remat granularity {granularity!r}")
+    return sorted(ends | set(layers))
+
+
+def _run_layers(params, x, first, end, wanted, pooling, mesh):
+    """Layers ``first`` .. ``end`` of the trunk on ``x``: returns the last
+    activation and the tapped ones on the way, in layer order."""
     pool_scale = POOLING_SCALES[pooling]
-    feats = {INPUT: image}
-    x = normalize(image)
-    if compute_dtype is not None:
-        x = x.to(compute_dtype)
-    wanted = set(layers)
-    for i in range(last + 1):
+    taps = []
+    for i in range(first, end + 1):
         if i in _CONV_SET:
             # A no-op when the params are already in the trunk's dtype.
             kernel = params[f"conv{i}_kernel"].to(x.dtype)
@@ -164,5 +186,70 @@ def extract_features(params, image, layers: Sequence[int], pooling: str = "max",
         else:
             x = F.relu(x)
         if i in wanted:
-            feats[i] = x
+            taps.append(x)
+    return (x, *taps)
+
+
+def extract_features(params, image, layers: Sequence[int], pooling: str = "max",
+                     compute_dtype=None, mesh=None, remat=False, at_tap=None):
+    """Run the VGG-19 trunk up to the last requested layer.
+
+    Args:
+      params: dict of ``conv{i}_kernel`` (OIHW) / ``conv{i}_bias`` tensors;
+        for a bf16 trunk pass them already cast (``cast_params``).
+      image: NCHW float image in [0, 1] (sRGB).
+      layers: torchvision feature indices to tap (sorted set semantics).
+      pooling: 'max' | 'average' | 'l2'.
+      compute_dtype: dtype of the trunk (``torch.bfloat16``), or None for
+        the image's own (FP32).
+      mesh: the mesh placed on the whole image's canvas when ``image`` is
+        this rank's slab of it, else None.
+      remat: False, True (the ``REMAT_DEFAULT`` granularity) or a name of
+        ``REMAT_GRANULARITIES``: the trunk runs in segments
+        (``remat_segment_ends``), each under ``torch.utils.checkpoint``,
+        which keeps a segment's input and outputs for the backward and
+        recomputes the rest inside it. The values and gradients are the
+        same; the peak memory of a backward through the features is lower.
+        Without remat the same segments run unwrapped.
+        Under a mesh a segment's recompute re-runs its halo exchanges; the
+        segments are the same on every rank.
+      at_tap: None, or ``at_tap(layer, activation)``, called for each tap
+        when the trunk has made it and before it goes on (outside any
+        checkpoint). What a loss computes from a tap there comes before the
+        deeper layers in autograd's graph, so the backward, which runs the
+        later-made nodes first, computes the tap's gradient from that loss
+        only after the deeper layers' backward: the gradient is not held
+        through the rest of the backward.
+
+    Returns:
+      dict mapping ``INPUT`` (-1) -> the raw image and each tapped index ->
+      its NCHW activation, in the trunk's dtype.
+    """
+    layers = sorted(set(int(l) for l in layers))
+    last = layers[-1]
+    h, w = image.shape[2:4] if mesh is None else mesh.canvas
+    mins = min_input_size(layers)
+    if min(h, w) < mins:
+        raise ValueError(f"Input is {h}x{w} but must be at least {mins}x{mins}")
+    feats = {INPUT: image}
+    x = normalize(image)
+    if compute_dtype is not None:
+        x = x.to(compute_dtype)
+    wanted = set(layers)
+    ends = remat_segment_ends(layers, remat if isinstance(remat, str) else REMAT_DEFAULT)
+    first = 0
+    for end in ends:
+        run = functools.partial(_run_layers, params, first=first, end=end, wanted=wanted,
+                                pooling=pooling, mesh=mesh)
+        # The trunk draws no random numbers, and saving the RNG state
+        # (preserve_rng_state) would read the CUDA generator, which a CUDA
+        # graph's capture forbids.
+        out = (checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
+               if remat else run(x))
+        x = out[0]
+        for layer, tap in zip(sorted(l for l in wanted if first <= l <= end), out[1:]):
+            feats[layer] = tap
+            if at_tap is not None:
+                at_tap(layer, tap)
+        first = end + 1
     return feats

@@ -89,10 +89,36 @@ def content_scaled(x, target, eps: float = 1e-8, mesh=None):
     return scaled_mse(x, target, eps, mesh)
 
 
-def _srm_outer(feats):
-    """(N, C, H, W) -> (N, C, C) sum over pixels of f f^T, in FP32."""
-    f = _f32(feats).flatten(2)
-    return f @ f.transpose(1, 2)
+class _Moments(torch.autograd.Function):
+    """(N, C, P) features of any float dtype -> the FP32 (N, C) mean over
+    the pixels (their sum with ``mean=False``) and (N, C, C) sum over the
+    pixels of f fᵀ. The backward makes one full-resolution tensor, (G₂ +
+    G₂ᵀ) f plus the first output's gradient spread over the pixels, and
+    keeps the features in their own dtype. Autograd's backward of the same
+    ops would keep an FP32 copy of bf16 features and make four: the
+    matmul's two gradients, their sum and the mean's, which at the first
+    tap set the step's peak memory."""
+
+    @staticmethod
+    def forward(ctx, f, mean: bool):
+        ctx.save_for_backward(f)
+        ctx.count = f.shape[-1] if mean else None
+        f32 = _f32(f)
+        first = torch.mean(f32, dim=2) if mean else torch.sum(f32, dim=2)
+        return first, f32 @ f32.transpose(1, 2)
+
+    @staticmethod
+    def backward(ctx, g1, g2):
+        (f,) = ctx.saved_tensors
+        out = (g2 + g2.transpose(1, 2)) @ _f32(f)
+        out.add_((g1 if ctx.count is None else g1 / ctx.count).unsqueeze(-1))
+        return out.to(f.dtype), None
+
+
+def _moments(feats, mean: bool = True):
+    """(N, C, H, W) -> (mean or sum over pixels, sum over pixels of f fᵀ),
+    in FP32 (see :class:`_Moments`)."""
+    return _Moments.apply(feats.flatten(2), mean)
 
 
 def gram_matrix(feats, mesh=None):
@@ -100,7 +126,7 @@ def gram_matrix(feats, mesh=None):
     reference's ``mat @ mat.T / (H*W)``). Returns (N, C, C)."""
     if mesh is None:
         h, w = feats.shape[2:4]
-        return _srm_outer(feats) / (h * w)
+        return _moments(feats)[1] / (h * w)
     return w2_moments(feats, mesh)[1]
 
 
@@ -121,14 +147,12 @@ def w2_moments(feats, mesh=None):
     """Mean (N, C) and second raw moment (N, C, C) of NCHW features; with a
     mesh, Σx and Σxxᵀ summed over the ranks, then divided by the global
     pixel count."""
-    feats = _f32(feats)
     if mesh is None:
         h, w = feats.shape[2:4]
-        mean = torch.mean(feats, dim=(2, 3))
-        srm = _srm_outer(feats) / (h * w)
-        return mean, srm
+        mean, s2 = _moments(feats)
+        return mean, s2 / (h * w)
     h, w = mesh.global_hw(feats)
-    s1, s2 = all_reduce_sum(mesh, torch.sum(feats, dim=(2, 3)), _srm_outer(feats))
+    s1, s2 = all_reduce_sum(mesh, *_moments(feats, mean=False))
     return s1 / (h * w), s2 / (h * w)
 
 

@@ -57,6 +57,7 @@ __all__ = [
     "make_mesh",
     "pick_backend",
     "slab_bounds",
+    "largest_slab",
     "shard_image",
     "gather_image",
     "broadcast",
@@ -211,6 +212,14 @@ def slab_bounds(h: int, w: int, mesh: Mesh, coord=None):
     return (rows[r], rows[r + 1]), (cols[c], cols[c + 1])
 
 
+def largest_slab(h: int, w: int, mesh: Mesh) -> Tuple[int, int]:
+    """(rows, cols) of the largest slab that any rank holds of an h x w
+    image: the same on every rank."""
+    rows, cols = _splits(h, mesh.grid[0]), _splits(w, mesh.grid[1])
+    return (max(b - a for a, b in zip(rows, rows[1:])),
+            max(b - a for a, b in zip(cols, cols[1:])))
+
+
 def shard_image(x, mesh: Optional[Mesh]):
     """This rank's slab of a whole image (any tensor whose last two dims are
     H and W), contiguous on the rank's device; ``x`` itself without a mesh."""
@@ -235,8 +244,7 @@ def gather_image(x, mesh: Optional[Mesh]):
     coords = [divmod(r, mesh.grid[1]) for r in range(mesh.world)]
     bounds = [slab_bounds(h, w, mesh, rc) for rc in coords]
     # all_gather moves equal shapes: pad each slab to the largest one.
-    hm = max(r1 - r0 for (r0, r1), _ in bounds)
-    wm = max(c1 - c0 for _, (c0, c1) in bounds)
+    hm, wm = largest_slab(h, w, mesh)
     padded = x.new_zeros((*x.shape[:-2], hm, wm))
     padded[..., :x.shape[-2], :x.shape[-1]] = x
     parts = _all_gather(padded, mesh)
@@ -328,7 +336,11 @@ def halo_pad(x, mesh: Mesh, replicate: bool = False):
     TV, zero for the other convs). Rows are exchanged first, then the
     columns of the row-extended slab, so the corners come with them. The
     pad is built from slices and ``torch.cat`` (see
-    ``ops/pooling.replicate_pad2d``)."""
+    ``ops/pooling.replicate_pad2d``). Under a rematerialised trunk
+    (``StepConfig.remat``) a segment's recompute calls this again inside
+    the backward, between the exchanges of the halos' gradients: every
+    rank runs the same segments, so the ranks make the exchanges in the
+    same order."""
     r, c = mesh.coord
 
     def border(edge):

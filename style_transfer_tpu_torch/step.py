@@ -26,12 +26,12 @@ elsewhere the body runs eagerly.
 import functools
 import time
 from dataclasses import dataclass
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from .models.vgg import INPUT, extract_features
+from .models.vgg import INPUT, REMAT_GRANULARITIES, extract_features
 from .ops import losses as L
 from .ops.cuda import ns_sqrtm as K
 from .ops.cuda import zoom_ls as ZL
@@ -93,6 +93,10 @@ class StepConfig:
     # Dtype of the VGG trunk: None runs it in FP32, ``torch.bfloat16`` in
     # bf16 (the statistics, the NS kernels and TV stay FP32).
     compute_dtype: Optional[torch.dtype] = None
+    # Rematerialise the VGG trunk in the backward (``models/vgg.py``): True
+    # takes ``vgg.REMAT_DEFAULT``'s checkpointed segments; the name of
+    # another granularity (``vgg.REMAT_GRANULARITIES``) is for measuring it.
+    remat: Union[bool, str] = False
 
     def __post_init__(self):
         if self.w2_grad not in ("trace", "lyap"):
@@ -101,6 +105,8 @@ class StepConfig:
             raise ValueError(f"unknown style_loss {self.style_loss!r}")
         if self.content_loss not in ("mse", "scaled"):
             raise ValueError(f"unknown content_loss {self.content_loss!r}")
+        if self.remat not in (False, True, *REMAT_GRANULARITIES):
+            raise ValueError(f"unknown remat {self.remat!r}")
 
     @property
     def all_layers(self) -> Tuple[int, ...]:
@@ -171,9 +177,18 @@ def build_loss_fn(cfg: StepConfig, mesh=None):
         return total
 
     def loss_fn(image, params, consts):
+        # The style moments are taken as the trunk makes each tap (see
+        # ``extract_features``' ``at_tap``): the backward then holds no
+        # full-resolution tap gradient while it runs the deeper layers.
+        moments = {}
+
+        def at_tap(layer, feat):
+            if layer in cfg.style_layers:
+                moments[layer] = L.w2_moments(feat, mesh)
+
         feats = extract_features(params, image, cfg.all_layers, pooling=cfg.pooling,
-                                 compute_dtype=cfg.compute_dtype, mesh=mesh)
-        moments = {l: L.w2_moments(feats[l], mesh) for l in cfg.style_layers}
+                                 compute_dtype=cfg.compute_dtype, mesh=mesh,
+                                 remat=cfg.remat, at_tap=at_tap)
         content = 0.0
         for layer, w in zip(cfg.content_layers, cfg.content_weights):
             diff = feats[layer].float() - consts["content"][layer].float()
@@ -198,7 +213,8 @@ def build_loss_terms_fn(cfg: StepConfig, mesh=None):
 
     def terms(image, params, consts):
         feats = extract_features(params, image, cfg.all_layers, pooling=cfg.pooling,
-                                 compute_dtype=cfg.compute_dtype, mesh=mesh)
+                                 compute_dtype=cfg.compute_dtype, mesh=mesh,
+                                 remat=cfg.remat)
         out = {}
         content_fn = L.content_mse if cfg.content_loss == "mse" else L.content_scaled
         for layer, w in zip(cfg.content_layers, cfg.content_weights):
@@ -397,7 +413,11 @@ class _Runner:
     ``go`` says so (:func:`run_trials`), the tail. The host reads one bool
     per trial and nothing else. (The JAX runner's whole search runs on
     the device; CUDA graphs' conditional nodes would do that here, but
-    PyTorch 2.11 does not expose them to Python.) A capture or
+    PyTorch 2.11 does not expose them to Python.) With ``StepConfig.remat``
+    the trunk's recompute runs inside the captured backward. The
+    allocator's cached blocks are released before a capture (the warm-up
+    iteration's), so warm-up and capture do not hold two iterations'
+    memory at once. A capture or
     replay that fails raises. ``capture_seconds`` is the host time of the
     last capture and its instantiation. The kernels' launch counts
     (``ops/cuda/ns_sqrtm.py``, ``ops/cuda/zoom_ls.py``) count each replay's
@@ -469,6 +489,12 @@ class _Runner:
         else:
             parts = [lambda: z.head(params, consts, static), z.trial, lambda: z.tail(static)]
         torch.cuda.synchronize(device)
+        # The eager first iteration leaves its blocks in the allocator's
+        # cache, which the capture's own pool cannot take, and the capture
+        # cannot free them (no cudaFree while a stream captures): they are
+        # released first, so that a canvas near the card's memory holds one
+        # iteration's blocks at a time, not two.
+        torch.cuda.empty_cache()
         t0 = time.perf_counter()
         graphs, pool = [], None
         for part in parts:

@@ -125,13 +125,17 @@ def test_cli_writes_output_and_trace(tmp_path, content_pil, style_pil):
     assert [it["i"] for it in t["iterates"]] == [1, 2, 3, 4, 5]
     assert all(np.isfinite(it["loss"]) for it in t["iterates"])
     assert t["args"]["devices"] == ["cpu"] and t["args"]["end_scale"] == 64
-    # TPU-only flags and unknown optimizers are absent; lbfgs-zoom is offered.
+    # TPU-only flags, unknown optimizers and unknown remat choices are
+    # absent; lbfgs-zoom and --remat's three choices are offered.
     parser = tcli.build_parser(T.StyleTransfer.stylize)
-    for flag in (["--sqrtm", "xla"], ["--remat", "on"], ["--bands", "4"],
+    for flag in (["--sqrtm", "xla"], ["--remat", "sometimes"], ["--bands", "4"],
                  ["--optimizer", "sgd"]):
         with pytest.raises(SystemExit):
             parser.parse_args(["c", "s", *flag])
     assert parser.parse_args(["c", "s", "--optimizer", "lbfgs-zoom"]).optimizer == "lbfgs-zoom"
+    assert [parser.parse_args(["c", "s", "--remat", c]).remat
+            for c in ("on", "off", "auto")] == ["on", "off", "auto"]
+    assert parser.parse_args(["c", "s"]).remat == "auto"
 
 
 def test_port_imports_no_jax():

@@ -45,6 +45,7 @@ VARIANTS = {
     "l2": {"hw": (64, 96), "cfg": {"pooling": "l2"}},
     "gram": {"hw": (64, 96), "cfg": {"style_loss": "gram"}},
     "scaled": {"hw": (64, 96), "cfg": {"content_loss": "scaled"}},
+    "remat": {"hw": (64, 96), "cfg": {"remat": True}},
 }
 # 72 rows: shard_align_size keeps 72 (64 and 96 are over 1.5% away), so
 # the two slabs are 32 and 40 rows.
