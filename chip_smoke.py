@@ -177,9 +177,10 @@ each of which exits non-zero on failure:
     ``tools/large_conv_probe_torch.py`` at 8192x6144 (conv1_2's
     convolution, ReLU and max pooling on a 64-channel canvas past 2^31
     elements, against the same ops on its halves) must pass; then at
-    8960x6720 (60.2 Mpx) ``--remat off`` (a subprocess) must end in CUDA's
-    out-of-memory error, and ``--remat auto`` must choose remat and run 5
-    iterations to finite losses, 20 B1 launches: its peak memory, ms/iter,
+    8192x6144 (50.3 Mpx; relu1_1 about 3.2e9 elements) ``--remat off`` (a
+    subprocess) must end in CUDA's out-of-memory error, and ``--remat auto``
+    must choose remat and run 3 iterations to finite losses, 12 B1
+    launches: its peak memory, ms/iter,
     the predicted peak without remat, and whether PyTorch warned that cuDNN
     refused a convolution. The phase's seconds are printed.
 
@@ -1932,12 +1933,13 @@ def _graph_phase():
 # at these (h, w), the first also bit for bit under deterministic cuDNN.
 REMAT_SIZES = [(384, 512), (1086, 1448)]
 # (c): a canvas that the FP32 step without remat cannot hold and with remat
-# can, with a margin each way: 8960x6720 from the 640x480 content (60.2
-# Mpx; relu1_1 holds 3.9e9 elements, past 2^31). First the trunk's
+# can, with a margin each way: 8192x6144 from the 640x480 content (50.3
+# Mpx; relu1_1 holds about 3.2e9 elements, past 2^31). First the trunk's
 # full-resolution ops past 2^31 elements are held against the same ops on
-# halves (tools/large_conv_probe_torch.py, at 8192x6144).
+# halves (tools/large_conv_probe_torch.py, at 8192x6144). 3 iterations:
+# the fewest from which ms/iter over iterations 3 and up is defined.
 REMAT_BIG = 8192
-REMAT_BIG_ITERS = 5
+REMAT_BIG_ITERS = 3
 OOM_MESSAGES = ("torch.OutOfMemoryError", "CUDA out of memory")
 
 
@@ -2031,8 +2033,8 @@ def _remat_print_legs(tmp, content_path, style_path, print_legs):
 
 
 def _cli_process(tmp, content_path, style_path, label, flags):
-    """The CLI on DEVICE as a subprocess of its own (a fresh process, with
-    the CLI's own allocator settings), phase 4's images and weights, output
+    """The CLI on DEVICE as a subprocess of its own (a fresh process, its
+    memory the run's own), phase 4's images and weights, output
     and trace named by ``label``. Returns (the finished process, seconds)."""
     import os
 

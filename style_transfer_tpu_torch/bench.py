@@ -29,7 +29,7 @@ import time
 import numpy as np
 import torch
 
-from .engine import _resolve_compute_dtype
+from .engine import _resolve_compute_dtype, use_expandable_segments
 from .models.vgg import cast_params, extract_features, fp32_math
 from .models.weights import params_from_jax, random_params
 from .ops import losses as L
@@ -71,7 +71,8 @@ def build_step(h, w, *, device="cuda:0", w2_grad="trace", compute_dtype="auto",
     rematerialises the trunk). The runner runs with TF32 off, as
     ``stylize`` does, and is the one the engine takes on ``device``: on the
     card, Adam and L-BFGS replay a CUDA graph of the step (``eager=True``
-    runs the same body eagerly, for a comparison).
+    runs the same body eagerly, for a comparison), under the engine's
+    allocator settings (``engine.use_expandable_segments``).
 
     Returns ``(runner, params, consts, state)``; ``runner(params, consts,
     state, n)`` runs n iterations and returns ``(state, losses)``, writing
@@ -79,8 +80,10 @@ def build_step(h, w, *, device="cuda:0", w2_grad="trace", compute_dtype="auto",
     the step's runner (its ``capture_seconds``) and ``runner.cfg`` its
     ``StepConfig``."""
     device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {str(device)!r} requested but CUDA is not available")
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {str(device)!r} requested but CUDA is not available")
+        use_expandable_segments()
     make_runner, opt_init = _OPTIMIZERS[optimizer]
     cfg = StepConfig(w2_grad=w2_grad, compute_dtype=_resolve_compute_dtype(compute_dtype),
                      remat=remat, **cfg_kw)

@@ -323,11 +323,6 @@ def _profiler(out_dir, device):
 
 
 def main(argv=None):
-    # PyTorch's allocator with expandable segments, unless the caller chose
-    # one (before CUDA starts; ranks started here inherit it): at canvases
-    # near the card's memory its fixed segments lose a third of the card to
-    # fragmentation (README, "--remat").
-    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     from .engine import StyleTransfer  # deferred: torch import
     from .parallel import multihost
 

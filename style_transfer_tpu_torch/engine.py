@@ -21,7 +21,8 @@ and parity with the reference needs FP32 convolutions. ``remat`` (the JAX
 engine's) rematerialises the trunk in the backward at the scales that need
 it, so that one card holds a canvas whose trunk activations do not fit
 whole; under ``remat=None`` a CUDA device decides by the card's measured
-peak per pixel (``auto_remat``).
+peak per pixel (``auto_remat``), under the expandable allocator segments
+that the engine sets up on a CUDA device.
 
 With a ``mesh`` (``parallel/mesh.py``) the engine is one rank of a sharded
 run: every rank calls ``stylize`` with the same arguments, holds its slab of
@@ -93,7 +94,7 @@ from .utils.scales import align_size, gen_scales, shard_align_size, size_to_fit
 from .utils.trace import STIterate, peak_device_ram, reset_peak_device_ram
 
 __all__ = ["StyleTransfer", "auto_remat", "phase_totals", "predicted_peak_bytes",
-           "tensor_to_image"]
+           "tensor_to_image", "use_expandable_segments"]
 
 _DEBUG_TIMING = bool(os.environ.get("STT_DEBUG_TIMING"))
 
@@ -175,36 +176,60 @@ def _from_nhwc(arr, device):
     return x.movedim(-1, -3).contiguous().to(device)
 
 
-# Peak device memory per pixel of the graphed Adam step without remat, by
-# trunk dtype (None: FP32), at 2896x2172: `tools/remat_memory_torch.py
-# sizes=2172x2896` on an NVIDIA H100 80GB HBM3 at a 700 W power limit
-# (PERF.md §6). The peak grows with the pixels.
-NO_REMAT_BYTES_PER_PIXEL = {None: 1818.0, torch.bfloat16: 1150.0}
+# Peak device memory allocated per pixel by the graphed step without remat,
+# by optimizer and trunk dtype (None: FP32), at 2896x2172 with one style:
+# `tools/remat_memory_torch.py sizes=2172x2896 precisions=f32,bf16
+# optimizers=adam,lbfgs,lbfgs-zoom remat=off` on an NVIDIA H100 80GB HBM3
+# at a 700 W power limit (PERF.md §6). The engine's one-scale runs at
+# 31.6-66.4 Mpx allocated within 0.4% of these per pixel.
+NO_REMAT_BYTES_PER_PIXEL = {
+    "adam": {None: 1818.0, torch.bfloat16: 1150.0},
+    "lbfgs": {None: 2298.0, torch.bfloat16: 1630.0},
+    "lbfgs-zoom": {None: 2334.0, torch.bfloat16: 1666.0},
+}
 # remat=None rematerialises a scale whose predicted no-remat peak exceeds
-# this share of the device's memory.
+# this share of the device's memory; the rest holds the CUDA context and
+# the slack of the graphs' private pools (fixed segments). With expandable
+# segments the allocator's cache gives back free pages under pressure, so
+# what it reserves beyond that is not needed.
 REMAT_MEMORY_SHARE = 0.9
 # Off CUDA, remat=None keeps the JAX engine's rule (its ``auto_remat``):
 # rematerialise a canvas above 14 Mpx.
 JAX_REMAT_PIXELS = 14_000_000
+_ALLOC_CONF_VARS = ("PYTORCH_CUDA_ALLOC_CONF", "PYTORCH_ALLOC_CONF")
 
 
-def predicted_peak_bytes(h: int, w: int, compute_dtype=None, mesh=None) -> float:
+def use_expandable_segments():
+    """Gives PyTorch's CUDA caching allocator expandable segments for the
+    rest of the process, unless its environment configured the allocator
+    (``PYTORCH_CUDA_ALLOC_CONF`` or ``PYTORCH_ALLOC_CONF``). With fixed
+    segments a step near the card's memory lost up to a third of the card
+    to fragmentation, which ``auto_remat``'s margin does not cover (PERF.md
+    §6). CUDA graphs' private pools keep fixed segments."""
+    if not any(os.environ.get(k) for k in _ALLOC_CONF_VARS):
+        torch._C._accelerator_setAllocatorSettings("expandable_segments:True")
+
+
+def predicted_peak_bytes(h: int, w: int, compute_dtype=None, mesh=None,
+                         optimizer: str = "adam") -> float:
     """The predicted peak device memory of the step without remat on an h x
     w canvas: of its largest slab under a ``mesh`` (ranks that share one
     device are not summed)."""
     if mesh is not None:
         h, w = largest_slab(h, w, mesh)
-    return NO_REMAT_BYTES_PER_PIXEL[compute_dtype] * h * w
+    return NO_REMAT_BYTES_PER_PIXEL[optimizer][compute_dtype] * h * w
 
 
-def auto_remat(h: int, w: int, compute_dtype=None, total_memory=None, mesh=None) -> bool:
+def auto_remat(h: int, w: int, compute_dtype=None, total_memory=None, mesh=None,
+               optimizer: str = "adam") -> bool:
     """``remat=None``'s choice for an h x w canvas. With ``total_memory``
     (a CUDA device's bytes): whether ``predicted_peak_bytes`` exceeds
-    ``REMAT_MEMORY_SHARE`` of it. Without (the CPU): the JAX engine's rule
+    ``REMAT_MEMORY_SHARE`` of it, which holds under expandable segments
+    (``use_expandable_segments``). Without (the CPU): the JAX engine's rule
     on the canvas."""
     if total_memory is None:
         return h * w > JAX_REMAT_PIXELS
-    return (predicted_peak_bytes(h, w, compute_dtype, mesh)
+    return (predicted_peak_bytes(h, w, compute_dtype, mesh, optimizer)
             > REMAT_MEMORY_SHARE * total_memory)
 
 
@@ -241,7 +266,9 @@ class StyleTransfer:
         decides per scale (``auto_remat``: on a CUDA device when the
         predicted peak without it exceeds 90% of the device's memory, on
         the CPU above 14 Mpx, the JAX engine's rule), or a bool.
-        ``remat_scales`` records each scale's choice.
+        ``remat_scales`` records each scale's choice. On a CUDA device the
+        engine gives the allocator expandable segments
+        (``use_expandable_segments``), which the rule assumes.
       mesh: this process's ``parallel.mesh.Mesh`` for a sharded run (its
         device replaces ``device``), or None.
     """
@@ -269,8 +296,10 @@ class StyleTransfer:
         self.mesh = mesh
         self._scale_mesh = None  # the mesh placed on the current canvas
         self.device = torch.device(device if mesh is None else mesh.device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(f"device {device!r} requested but CUDA is not available")
+        if self.device.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError(f"device {device!r} requested but CUDA is not available")
+            use_expandable_segments()
         if pooling not in ("max", "average", "l2"):
             raise ValueError(f"unknown pooling mode {pooling!r}")
         self.pooling = pooling
@@ -408,7 +437,7 @@ class StyleTransfer:
             self._params_cast = cast_params(self.params, self.compute_dtype)
         return self._params_cast
 
-    def _scale_remat(self, ch, cw):
+    def _scale_remat(self, ch, cw, optimizer):
         """Whether the current scale (a ch x cw canvas) rematerialises the
         trunk, recorded in ``remat_scales``. Under a mesh the ranks agree
         (one all-reduce), so that they run the same segments."""
@@ -417,9 +446,10 @@ class StyleTransfer:
             remat = self.remat
         elif self.device.type == "cuda":
             total = torch.cuda.get_device_properties(self.device).total_memory
-            remat = auto_remat(ch, cw, self.compute_dtype, total, self._scale_mesh)
-            predicted = predicted_peak_bytes(ch, cw, self.compute_dtype,
-                                             self._scale_mesh) / 2**20
+            remat = auto_remat(ch, cw, self.compute_dtype, total, self._scale_mesh,
+                               optimizer)
+            predicted = predicted_peak_bytes(ch, cw, self.compute_dtype, self._scale_mesh,
+                                             optimizer) / 2**20
             if self.mesh is not None:
                 flag = torch.tensor([float(remat)], device=self.device)
                 remat = bool(all_reduce_(flag, self.mesh, op="max").item())
@@ -687,7 +717,7 @@ class StyleTransfer:
                             step_size=step_size,
                             avg_decay=avg_decay,
                             compute_dtype=self.compute_dtype,
-                            remat=self._scale_remat(ch, cw),
+                            remat=self._scale_remat(ch, cw, optimizer),
                         )
                         actual_its = (initial_iterations if scale == scales[0]
                                       else iterations)

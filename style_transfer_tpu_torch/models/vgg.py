@@ -49,8 +49,6 @@ __all__ = [
     "cast_params",
     "extract_features",
     "fp32_math",
-    "REMAT_DEFAULT",
-    "REMAT_GRANULARITIES",
     "remat_segment_ends",
 ]
 
@@ -124,43 +122,15 @@ def cast_params(params, dtype):
     return {k: v.to(dtype) for k, v in params.items()}
 
 
-# Where the rematerialised trunk ends its checkpointed segments (see
-# ``extract_features``), by granularity: each names the layers after which
-# a segment ends; the last layer always ends one. ``remat=True`` takes
-# REMAT_DEFAULT; the others are kept for ``tools/remat_memory_torch.py``,
-# which measures each one's peak memory and ms/iter (PERF.md §6).
-REMAT_GRANULARITIES = ("block", "tap", "conv", "whole")
-REMAT_DEFAULT = "block"
-
-
-def remat_segment_ends(layers: Sequence[int], granularity: str = REMAT_DEFAULT):
+def remat_segment_ends(layers: Sequence[int]):
     """The sorted layer indices after which the rematerialised trunk ends a
-    segment, for the taps ``layers``:
-
-    * ``"block"``: after every pool, so that the backward keeps the taps
-      and the pools' outputs and recomputes at most one conv block between
-      two of them;
-    * ``"tap"``: at the taps only, so that the backward keeps the taps;
-    * ``"conv"``: after every ReLU, a conv unit each (a pool joins the unit
-      after it);
-    * ``"whole"``: one segment, the JAX package's ``jax.checkpoint`` around
-      the whole trunk.
-
-    Every granularity ends a segment at every tap as well, so that each tap
-    is a segment's output."""
+    segment, for the taps ``layers``: after every pool and every tap, so
+    that the backward keeps the taps and the pools' outputs and recomputes
+    at most one conv block between two of them. (Segments at the taps only,
+    one per conv unit, and one around the whole trunk, the JAX package's
+    wrapping, each peaked higher on the card: PERF.md §6.)"""
     layers = sorted(set(int(l) for l in layers))
-    last = layers[-1]
-    if granularity == "block":
-        ends = {i for i in POOL_INDICES if i < last}
-    elif granularity == "tap":
-        ends = set()
-    elif granularity == "conv":
-        ends = {i for i in range(last) if i not in _CONV_SET and i not in _POOL_SET}
-    elif granularity == "whole":
-        return [last]
-    else:
-        raise ValueError(f"unknown remat granularity {granularity!r}")
-    return sorted(ends | set(layers))
+    return sorted({i for i in POOL_INDICES if i < layers[-1]} | set(layers))
 
 
 def _run_layers(params, x, first, end, wanted, pooling, mesh):
@@ -204,8 +174,7 @@ def extract_features(params, image, layers: Sequence[int], pooling: str = "max",
         the image's own (FP32).
       mesh: the mesh placed on the whole image's canvas when ``image`` is
         this rank's slab of it, else None.
-      remat: False, True (the ``REMAT_DEFAULT`` granularity) or a name of
-        ``REMAT_GRANULARITIES``: the trunk runs in segments
+      remat: whether the trunk runs in segments
         (``remat_segment_ends``), each under ``torch.utils.checkpoint``,
         which keeps a segment's input and outputs for the backward and
         recomputes the rest inside it. The values and gradients are the
@@ -226,7 +195,6 @@ def extract_features(params, image, layers: Sequence[int], pooling: str = "max",
       its NCHW activation, in the trunk's dtype.
     """
     layers = sorted(set(int(l) for l in layers))
-    last = layers[-1]
     h, w = image.shape[2:4] if mesh is None else mesh.canvas
     mins = min_input_size(layers)
     if min(h, w) < mins:
@@ -236,9 +204,8 @@ def extract_features(params, image, layers: Sequence[int], pooling: str = "max",
     if compute_dtype is not None:
         x = x.to(compute_dtype)
     wanted = set(layers)
-    ends = remat_segment_ends(layers, remat if isinstance(remat, str) else REMAT_DEFAULT)
     first = 0
-    for end in ends:
+    for end in remat_segment_ends(layers):
         run = functools.partial(_run_layers, params, first=first, end=end, wanted=wanted,
                                 pooling=pooling, mesh=mesh)
         # The trunk draws no random numbers, and saving the RNG state

@@ -48,6 +48,7 @@ __all__ = [
     "moments_to_cov",
     "w2_target",
     "w2_loss",
+    "w2_loss_from_moments",
     "w2_losses_batched",
     "tv_loss",
     "global_numel",
@@ -187,6 +188,12 @@ def w2_loss(feats, target: W2Target, eps: float = 1e-4, sqrtm_iters: int = 12,
     """W2(N(m1,C1), N(m2,C2))^2 = |m1-m2|^2 + tr(C1 + C2 - 2 (C2^½ C1 C2^½)^½),
     with the reference's mean-instead-of-sum reductions."""
     mean, srm = w2_moments(feats, mesh)
+    return w2_loss_from_moments(mean, srm, target, eps, sqrtm_iters)
+
+
+def w2_loss_from_moments(mean, srm, target: W2Target, eps: float = 1e-4,
+                         sqrtm_iters: int = 12):
+    """``w2_loss`` from the features' ``w2_moments``."""
     cov = moments_to_cov(mean, srm, eps)
     mean_diff = torch.mean((mean - target.mean) ** 2)
     inner = target.cov_sqrt @ (cov @ target.cov_sqrt)

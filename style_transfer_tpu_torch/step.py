@@ -26,12 +26,12 @@ elsewhere the body runs eagerly.
 import functools
 import time
 from dataclasses import dataclass
-from typing import NamedTuple, Optional, Tuple, Union
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .models.vgg import INPUT, REMAT_GRANULARITIES, extract_features
+from .models.vgg import INPUT, extract_features
 from .ops import losses as L
 from .ops.cuda import ns_sqrtm as K
 from .ops.cuda import zoom_ls as ZL
@@ -93,10 +93,9 @@ class StepConfig:
     # Dtype of the VGG trunk: None runs it in FP32, ``torch.bfloat16`` in
     # bf16 (the statistics, the NS kernels and TV stay FP32).
     compute_dtype: Optional[torch.dtype] = None
-    # Rematerialise the VGG trunk in the backward (``models/vgg.py``): True
-    # takes ``vgg.REMAT_DEFAULT``'s checkpointed segments; the name of
-    # another granularity (``vgg.REMAT_GRANULARITIES``) is for measuring it.
-    remat: Union[bool, str] = False
+    # Rematerialise the VGG trunk in the backward, in checkpointed segments
+    # (``models/vgg.py``).
+    remat: bool = False
 
     def __post_init__(self):
         if self.w2_grad not in ("trace", "lyap"):
@@ -105,8 +104,6 @@ class StepConfig:
             raise ValueError(f"unknown style_loss {self.style_loss!r}")
         if self.content_loss not in ("mse", "scaled"):
             raise ValueError(f"unknown content_loss {self.content_loss!r}")
-        if self.remat not in (False, True, *REMAT_GRANULARITIES):
-            raise ValueError(f"unknown remat {self.remat!r}")
 
     @property
     def all_layers(self) -> Tuple[int, ...]:
@@ -123,6 +120,23 @@ class LoopState(NamedTuple):
     image: torch.Tensor  # NCHW f32 (in [0, 1] under Adam's clamp)
     opt: "AdamState | LBFGSState | ZoomLBFGSState"
     ema: EMAState
+
+
+def _features_and_moments(cfg: StepConfig, mesh, image, params):
+    """The trunk's taps and each style layer's ``w2_moments``, taken as the
+    trunk makes its tap (``extract_features``' ``at_tap``): the backward
+    then holds no full-resolution tap gradient while it runs the deeper
+    layers."""
+    moments = {}
+
+    def at_tap(layer, feat):
+        if layer in cfg.style_layers:
+            moments[layer] = L.w2_moments(feat, mesh)
+
+    feats = extract_features(params, image, cfg.all_layers, pooling=cfg.pooling,
+                             compute_dtype=cfg.compute_dtype, mesh=mesh,
+                             remat=cfg.remat, at_tap=at_tap)
+    return feats, moments
 
 
 def build_loss_fn(cfg: StepConfig, mesh=None):
@@ -177,18 +191,7 @@ def build_loss_fn(cfg: StepConfig, mesh=None):
         return total
 
     def loss_fn(image, params, consts):
-        # The style moments are taken as the trunk makes each tap (see
-        # ``extract_features``' ``at_tap``): the backward then holds no
-        # full-resolution tap gradient while it runs the deeper layers.
-        moments = {}
-
-        def at_tap(layer, feat):
-            if layer in cfg.style_layers:
-                moments[layer] = L.w2_moments(feat, mesh)
-
-        feats = extract_features(params, image, cfg.all_layers, pooling=cfg.pooling,
-                                 compute_dtype=cfg.compute_dtype, mesh=mesh,
-                                 remat=cfg.remat, at_tap=at_tap)
+        feats, moments = _features_and_moments(cfg, mesh, image, params)
         content = 0.0
         for layer, w in zip(cfg.content_layers, cfg.content_weights):
             diff = feats[layer].float() - consts["content"][layer].float()
@@ -212,22 +215,19 @@ def build_loss_terms_fn(cfg: StepConfig, mesh=None):
     sharded as :func:`build_loss_fn` with a ``mesh``."""
 
     def terms(image, params, consts):
-        feats = extract_features(params, image, cfg.all_layers, pooling=cfg.pooling,
-                                 compute_dtype=cfg.compute_dtype, mesh=mesh,
-                                 remat=cfg.remat)
+        feats, moments = _features_and_moments(cfg, mesh, image, params)
         out = {}
         content_fn = L.content_mse if cfg.content_loss == "mse" else L.content_scaled
         for layer, w in zip(cfg.content_layers, cfg.content_weights):
             out[f"content_{layer}"] = w * content_fn(
                 feats[layer], consts["content"][layer], mesh=mesh)
         for layer, w in zip(cfg.style_layers, cfg.style_layer_weights):
+            mean, srm = moments[layer]
             if cfg.style_loss == "w2":
-                out[f"style_w2_{layer}"] = w * L.w2_loss(
-                    feats[layer], consts["style"][layer], cfg.w2_eps,
-                    cfg.sqrtm_iters, mesh=mesh)
-            else:
-                out[f"style_gram_{layer}"] = w * L.gram_loss(
-                    feats[layer], consts["style"][layer], mesh=mesh)
+                out[f"style_w2_{layer}"] = w * L.w2_loss_from_moments(
+                    mean, srm, consts["style"][layer], cfg.w2_eps, cfg.sqrtm_iters)
+            else:  # the Gram matrix is the second raw moment (``gram_loss``)
+                out[f"style_gram_{layer}"] = w * L.scaled_mse(srm, consts["style"][layer])
         out["tv"] = cfg.tv_weight * L.tv_loss(feats[INPUT], mesh)
         return out
 

@@ -1,8 +1,8 @@
 """PyTorch port: the rematerialised VGG trunk (``--remat``) on the CPU.
 
-The loss and gradient with the trunk rematerialised (at each granularity of
-``models/vgg.REMAT_GRANULARITIES``) against the trunk without, the engine
-with ``remat=True`` against the JAX engine with ``remat=True``, the
+The loss and gradient with the trunk rematerialised against the trunk
+without, the per-term diagnostic against the loss, the engine with
+``remat=True`` against the JAX engine with ``remat=True``, the
 ``remat=None`` rule as a pure function, and the CLI's ``--remat`` choices.
 Inputs are made from seeded numpy draws; the port's NS wrapper takes its
 plain version on CPU tensors.
@@ -20,12 +20,12 @@ from style_transfer_tpu.engine import auto_size_knobs
 from style_transfer_tpu.models.weights import random_params
 from style_transfer_tpu_torch import cli as tcli
 from style_transfer_tpu_torch.bench import build_step
-from style_transfer_tpu_torch.engine import (REMAT_MEMORY_SHARE, auto_remat,
-                                             predicted_peak_bytes)
-from style_transfer_tpu_torch.models.vgg import REMAT_GRANULARITIES, remat_segment_ends
+from style_transfer_tpu_torch.engine import (NO_REMAT_BYTES_PER_PIXEL, REMAT_MEMORY_SHARE,
+                                             auto_remat, predicted_peak_bytes)
+from style_transfer_tpu_torch.models.vgg import remat_segment_ends
 from style_transfer_tpu_torch.ops import losses as L
 from style_transfer_tpu_torch.parallel.mesh import Mesh
-from style_transfer_tpu_torch.step import StepConfig, build_loss_fn
+from style_transfer_tpu_torch.step import StepConfig, build_loss_fn, build_loss_terms_fn
 
 torch.set_num_threads(2)
 
@@ -33,13 +33,12 @@ PARAMS = random_params(0)
 GIB = 2**30
 
 
-@pytest.mark.parametrize("granularity", REMAT_GRANULARITIES)
-def test_loss_and_gradient_match_without_remat(granularity):
+def test_loss_and_gradient_match_without_remat():
     """The loss and its image gradient at 64x48 (FP32) with the trunk
     rematerialised, held to the JAX package's remat bar
     (``tests/test_banded.py``: loss rtol 2e-5, gradient rtol 5e-4 with atol
-    3e-6). On the CPU both came out bit-identical at every granularity: the
-    autograd graph is the same and the recompute repeats the forward's ops."""
+    3e-6). On the CPU both came out bit-identical: the autograd graph is
+    the same and the recompute repeats the forward's ops."""
     _, params, consts, state = build_step(48, 64, device="cpu")
     x0 = state.image
 
@@ -50,7 +49,7 @@ def test_loss_and_gradient_match_without_remat(granularity):
         return loss.detach().numpy(), g.numpy()
 
     loss, grad = value_and_grad(False)
-    r_loss, r_grad = value_and_grad(granularity)
+    r_loss, r_grad = value_and_grad(True)
     np.testing.assert_allclose(r_loss, loss, rtol=2e-5)
     np.testing.assert_allclose(r_grad, grad, rtol=5e-4, atol=3e-6)
 
@@ -83,17 +82,24 @@ def test_moments_backward_matches_autograd(dtype):
 
 
 def test_segments_end_at_every_tap():
+    """Segments end after every pool below the last tap and at every tap."""
     taps = StepConfig().all_layers  # (1, 6, 11, 20, 22, 29)
-    assert remat_segment_ends(taps) == remat_segment_ends(taps, "block")
-    assert remat_segment_ends(taps, "tap") == list(taps)
-    assert remat_segment_ends(taps, "whole") == [29]
-    assert remat_segment_ends(taps, "block") == [1, 4, 6, 9, 11, 18, 20, 22, 27, 29]
-    assert remat_segment_ends(taps, "conv") == [1, 3, 6, 8, 11, 13, 15, 17, 20, 22, 24,
-                                                26, 29]
-    with pytest.raises(ValueError, match="granularity"):
-        remat_segment_ends(taps, "layer")
-    with pytest.raises(ValueError, match="remat"):
-        StepConfig(remat="layer")
+    assert remat_segment_ends(taps) == [1, 4, 6, 9, 11, 18, 20, 22, 27, 29]
+    assert remat_segment_ends((22,)) == [4, 9, 18, 22]
+
+
+@pytest.mark.parametrize("style_loss", ["w2", "gram"])
+def test_loss_terms_sum_to_the_loss(style_loss):
+    """``build_loss_terms_fn``'s weighted terms, which take the moments as
+    the loss does, sum to ``build_loss_fn``'s value, with remat."""
+    cfg = StepConfig(remat=True, style_loss=style_loss)
+    _, params, consts, state = build_step(48, 64, device="cpu", style_loss=style_loss,
+                                          remat=True)
+    with torch.no_grad():
+        loss = build_loss_fn(cfg)(state.image, params, consts)
+        terms = build_loss_terms_fn(cfg)(state.image, params, consts)
+    assert len(terms) == 1 + len(cfg.style_layers) + len(cfg.content_layers)
+    np.testing.assert_allclose(float(sum(terms.values())), float(loss), rtol=1e-5)
 
 
 def test_engine_with_remat_matches_jax(content_pil, style_pil):
@@ -125,10 +131,13 @@ def test_auto_rule():
     against 90% of its memory (the largest slab's under a mesh), on the CPU
     the JAX engine's rule."""
     card = 80 * GIB
-    for dtype in (None, torch.bfloat16):
-        assert not auto_remat(2172, 2896, dtype, card)
-    # 8192x6144 (50.3 Mpx): FP32 rematerialises, bf16 holds it without.
-    assert auto_remat(6144, 8192, None, card)
+    # 2896x2172 runs without remat under every optimizer; 8192x6144 (50.3
+    # Mpx) FP32 rematerialises.
+    for optimizer in NO_REMAT_BYTES_PER_PIXEL:
+        for dtype in (None, torch.bfloat16):
+            assert not auto_remat(2172, 2896, dtype, card, optimizer=optimizer)
+        assert auto_remat(6144, 8192, None, card, optimizer=optimizer)
+    # Adam's bf16 step holds 8192x6144 without.
     assert not auto_remat(6144, 8192, torch.bfloat16, card)
     assert auto_remat(9216, 12288, torch.bfloat16, card)
     # FP32 at 8192x6144: 2 ranks hold 25.2 Mpx slabs, under the card's
