@@ -1,0 +1,7 @@
+"""``device_idle`` in the step cells (see ``_idle.py``)."""
+
+from benchmark.metrics import _idle
+
+
+def read(ctx):
+    return _idle.read(ctx, "step")
