@@ -34,15 +34,21 @@ same chunk: a ``KeyboardInterrupt`` from rank 0's callbacks or a Ctrl-C on
 any rank (``Mesh.interrupt``) is agreed on at the chunk's end, and every
 rank then raises ``KeyboardInterrupt`` out of ``stylize``.
 
-``stylize`` times each of its phases under the JAX engine's names
-(``phase_totals``): ``scale-entry@S``, ``targets@S`` (with the indented
-``  targets:*`` rows inside it), ``chunk1@SxN`` / ``chunk@SxN``,
-``ckpt-snapshot@S``, ``scale-exit@S`` and ``final-image``, with the
-indented ``  capture@S`` row inside the chunk that captured the scale's
-CUDA graph (its capture and instantiation). On CUDA every phase but a
-chunk ends with a device synchronize, so its device work is billed to it
-and not to the next chunk; a chunk ends in its host read. With
-``STT_DEBUG_TIMING`` set each phase's time is printed as it ends.
+``stylize`` records each of its phases as a span of the recorder
+(``utils/trace.py``), under the JAX engine's names (``phase_totals``):
+``prologue`` (from the call to the first scale), ``scale-entry@S``,
+``targets@S`` (with the indented ``  targets:*`` spans inside it),
+``chunk1@SxN`` / ``chunk@SxN``, ``callbacks@S`` (the ``STIterate`` loop
+after a chunk), ``ckpt-snapshot@S``, ``scale-exit@S`` and ``final-image``;
+the runner's ``  warm-up@S`` and ``  capture@S`` (its capture and
+instantiation of the scale's CUDA graphs) lie inside the scale's first
+chunk. On CUDA every phase but a chunk, the callbacks and ``final-image``
+ends with a device synchronize, so its device work is billed to it and not
+to the next chunk; a chunk ends in its host read of its losses. Each point
+where the host blocks on the device is a ``host_wait`` of the recorder.
+With ``STT_DEBUG_TIMING`` set each phase's time is printed as it ends, and
+each scale's section times of the step (``step._Runner.section_ms``) at
+its end.
 
 The runners (``step.py``) write the state's tensors in place, and on the
 card replay one CUDA graph per scale over them, so the engine copies what
@@ -88,54 +94,21 @@ from .step import (
     make_lbfgs_zoom_runner,
     zoom_lbfgs_init,
 )
+from .utils import trace as T
 from .utils.checkpoint import AsyncCheckpointWriter, load_checkpoint, unpack_rng_state
 from .utils.ema import EMAState, ema_get, ema_init
 from .utils.scales import align_size, gen_scales, shard_align_size, size_to_fit
-from .utils.trace import STIterate, peak_device_ram, reset_peak_device_ram
+from .utils.trace import STIterate, host_wait, peak_device_ram, reset_peak_device_ram, span
 
 __all__ = ["StyleTransfer", "auto_remat", "phase_totals", "predicted_peak_bytes",
            "tensor_to_image", "use_expandable_segments"]
 
-_DEBUG_TIMING = bool(os.environ.get("STT_DEBUG_TIMING"))
-
-# Cumulative seconds per phase name, always collected (one perf_counter pair
-# a phase); ``tools/bench_pyramid_torch.py`` attributes a run's
-# non-iterating wall to these phases and the rest to "untimed".
-_PHASE_TOTALS: dict = {}
-
-
 def phase_totals(reset: bool = False) -> dict:
-    """Snapshot {phase name: cumulative seconds}; optionally reset."""
-    out = dict(_PHASE_TOTALS)
-    if reset:
-        _PHASE_TOTALS.clear()
-    return out
-
-
-class _phase_timer:
-    """Accumulates a phase's wall time under ``name``; with a CUDA
-    ``device`` the phase ends with a synchronize of it, so the phase's
-    device work is inside its time. Prints the time when STT_DEBUG_TIMING
-    is set."""
-
-    def __init__(self, name, device=None):
-        self.name = name
-        self.sync = device is not None and device.type == "cuda"
-        self.device = device
-
-    def __enter__(self):
-        self.t0 = time.perf_counter()
-
-    def __exit__(self, exc_type, *exc):
-        if self.sync and exc_type is None:
-            torch.cuda.synchronize(self.device)
-        _add_phase(self.name, time.perf_counter() - self.t0)
-
-
-def _add_phase(name, dur):
-    _PHASE_TOTALS[name] = _PHASE_TOTALS.get(name, 0.0) + dur
-    if _DEBUG_TIMING:
-        print(f"[timing] {name}: {dur:.2f}s @{time.time():.2f}", flush=True)
+    """Snapshot {phase name: cumulative seconds}; optionally reset. The
+    seconds of every span of the recorder (``utils/trace.py``), always
+    collected; ``tools/bench_pyramid_torch.py`` attributes a run's
+    non-iterating wall to these phases and the rest to "untimed"."""
+    return T.phase_totals(reset)
 
 
 def _pil_to_nchw(image: Image.Image, size=None, device="cpu"):
@@ -353,7 +326,9 @@ class StyleTransfer:
             return None
         if self._img_cache_key != self._avg_version:
             img = self._avg_image()[0].permute(1, 2, 0)
-            self._img_cache = np.clip(img.detach().cpu().numpy(), 0.0, 1.0)
+            with host_wait("image"):
+                img = img.detach().cpu()
+            self._img_cache = np.clip(img.numpy(), 0.0, 1.0)
             self._img_cache_key = self._avg_version
         return self._img_cache
 
@@ -504,7 +479,7 @@ class StyleTransfer:
         """Per-scale content/style targets (once per scale), with the trunk in
         the step's dtype; the statistics are FP32."""
         params = self._step_params()
-        with _phase_timer("  targets:content-feats", self.device):
+        with span("  targets:content-feats", self.device):
             content_feats = extract_features(
                 params, content, self.content_layers, pooling=self.pooling,
                 compute_dtype=cfg.compute_dtype, mesh=self._scale_mesh)
@@ -520,7 +495,7 @@ class StyleTransfer:
                 sw, sh = size_to_fit(img.size, style_size)
             print(f"Processing style image ({sw}x{sh})...")
             style = _pil_to_nchw(img, (sw, sh), self.device)
-            with _phase_timer("  targets:style-stats", self.device):
+            with span("  targets:style-stats", self.device):
                 feats = extract_features(
                     params, style, self.style_layers, pooling=self.pooling,
                     compute_dtype=cfg.compute_dtype)
@@ -532,7 +507,7 @@ class StyleTransfer:
                         blended[layer] = contrib
                     else:
                         blended[layer] = [b + c for b, c in zip(blended[layer], contrib)]
-        with _phase_timer("  targets:finalize", self.device):
+        with span("  targets:finalize", self.device):
             for layer in self.style_layers:
                 if cfg.style_loss == "w2":
                     mean, srm = blended[layer]
@@ -637,44 +612,47 @@ class StyleTransfer:
         if optimizer not in _RUNNERS:
             raise ValueError("optimizer must be one of 'adam', 'lbfgs', 'lbfgs-zoom'")
         with fp32_math(self.device):
-            min_scale = min(min_scale, end_scale)
-            content_weights = [content_weight / len(self.content_layers)] * len(
-                self.content_layers)
-            if style_weights is None:
-                style_weights = [1 / len(style_images)] * len(style_images)
-            else:
-                total = sum(abs(w) for w in style_weights)
-                style_weights = [w / total for w in style_weights]
-            if len(style_images) != len(style_weights):
-                raise ValueError("style_images and style_weights must have the same length")
+            # From the call to the first scale: the inputs, the initial image.
+            with span("prologue", self.device):
+                min_scale = min(min_scale, end_scale)
+                content_weights = [content_weight / len(self.content_layers)] * len(
+                    self.content_layers)
+                if style_weights is None:
+                    style_weights = [1 / len(style_images)] * len(style_images)
+                else:
+                    total = sum(abs(w) for w in style_weights)
+                    style_weights = [w / total for w in style_weights]
+                if len(style_images) != len(style_weights):
+                    raise ValueError(
+                        "style_images and style_weights must have the same length")
 
-            scales = gen_scales(min_scale, end_scale)
-            self.remat_scales = []
-            resume_state = None
-            start_scale_idx = 0
-            if resume and checkpoint and Path(checkpoint).is_file():
-                resume_state = self._load_resume(
-                    checkpoint, optimizer, scales, content_image.size, align)
-                start_scale_idx = resume_state["scale_index"]
-                whole = _from_nhwc(resume_state["image"], self.device)
-            else:
-                cw, ch = self.canvas(content_image.size, scales[0], align)
-                whole = self._init_image(
-                    init, content_image, style_images, style_weights, (ch, cw))
+                scales = gen_scales(min_scale, end_scale)
+                self.remat_scales = []
+                resume_state = None
+                start_scale_idx = 0
+                if resume and checkpoint and Path(checkpoint).is_file():
+                    resume_state = self._load_resume(
+                        checkpoint, optimizer, scales, content_image.size, align)
+                    start_scale_idx = resume_state["scale_index"]
+                    whole = _from_nhwc(resume_state["image"], self.device)
+                else:
+                    cw, ch = self.canvas(content_image.size, scales[0], align)
+                    whole = self._init_image(
+                        init, content_image, style_images, style_weights, (ch, cw))
 
-            # Checkpoints are written on a background thread, every
-            # ``checkpoint_every`` iterations and at every scale end. The
-            # runners write the state's tensors in place, so the snapshot
-            # is a copy made on the device at submit: what the writer
-            # fetches is the state of the snapshot's iteration even while
-            # the next chunks run.
-            if checkpoint is not None and optimizer == "lbfgs-zoom":
-                print(
-                    "Warning: --checkpoint supports the adam and lbfgs "
-                    "optimizers; no checkpoints will be written for this "
-                    "lbfgs-zoom run (its optax state is not serialized)."
-                )
-            checkpointing = checkpoint is not None and optimizer != "lbfgs-zoom"
+                # Checkpoints are written on a background thread, every
+                # ``checkpoint_every`` iterations and at every scale end. The
+                # runners write the state's tensors in place, so the snapshot
+                # is a copy made on the device at submit: what the writer
+                # fetches is the state of the snapshot's iteration even while
+                # the next chunks run.
+                if checkpoint is not None and optimizer == "lbfgs-zoom":
+                    print(
+                        "Warning: --checkpoint supports the adam and lbfgs "
+                        "optimizers; no checkpoints will be written for this "
+                        "lbfgs-zoom run (its optax state is not serialized)."
+                    )
+                checkpointing = checkpoint is not None and optimizer != "lbfgs-zoom"
             ckpt_writer = (AsyncCheckpointWriter() if checkpointing and self._is_rank0
                            else None)
             iters_since_ckpt = 0
@@ -685,7 +663,7 @@ class StyleTransfer:
                         continue
                     resuming_here = (resume_state is not None
                                      and scale_idx == start_scale_idx)
-                    with _phase_timer(f"scale-entry@{scale}", self.device):
+                    with span(f"scale-entry@{scale}", self.device):
                         cw, ch = self.canvas(content_image.size, scale, align)
                         self._scale_mesh = (None if self.mesh is None
                                             else self.mesh.on_canvas(ch, cw))
@@ -723,13 +701,13 @@ class StyleTransfer:
                                       else iterations)
 
                     print(f"Processing content image ({cw}x{ch})...")
-                    with _phase_timer(f"targets@{scale}", self.device):
+                    with span(f"targets@{scale}", self.device):
                         consts = self._capture_targets(
                             content, style_images, style_weights, scale, style_scale_fac,
                             style_size, cfg)
                     self._last_cfg, self._last_consts = cfg, consts
 
-                    with _phase_timer(f"scale-entry@{scale}", self.device):
+                    with span(f"scale-entry@{scale}", self.device):
                         if resuming_here:
                             opt_state = self._restored_opt(resume_state, optimizer)
                         elif optimizer == "adam":
@@ -742,6 +720,7 @@ class StyleTransfer:
                         else:
                             opt_state = zoom_lbfgs_init(self.image)
                         runner = _RUNNERS[optimizer](cfg, self._scale_mesh)
+                        runner.label = f"@{scale}"
                         # The runner copies the state into buffers of its own
                         # (and hands those back): the engine's optimizer
                         # state is not needed past this point.
@@ -757,10 +736,10 @@ class StyleTransfer:
                         n = min(self.callback_chunk, actual_its - done)
                         # A chunk's phase ends in its host read, which waits
                         # for the chunk's device work.
-                        with _phase_timer(f"{'chunk1' if first_chunk else 'chunk'}"
-                                          f"@{scale}x{n}"):
+                        with span(f"{'chunk1' if first_chunk else 'chunk'}@{scale}x{n}"):
                             state, losses_dev = runner(self._step_params(), consts, state, n)
-                            losses = losses_dev.cpu().numpy().astype(np.float64)
+                            with host_wait("losses"):
+                                losses = losses_dev.cpu().numpy().astype(np.float64)
                         first_chunk = False
                         self.image = state.image
                         self._set_average(state.ema)
@@ -773,40 +752,49 @@ class StyleTransfer:
                         if checkpointing:
                             iters_since_ckpt += n
                             if iters_since_ckpt >= checkpoint_every or done >= actual_its:
-                                with _phase_timer(f"ckpt-snapshot@{scale}", self.device):
+                                with span(f"ckpt-snapshot@{scale}", self.device):
                                     self._submit_checkpoint(
                                         ckpt_writer, checkpoint, state, optimizer,
                                         scale_idx, done, (cw, ch, scale))
                                 iters_since_ckpt = 0
                         stop = False
+                        # No closing synchronize: the chunk's read left the
+                        # device idle, and a preview's fetch is its own.
                         if callback is not None and self._is_rank0:
-                            ram = peak_device_ram(self.device)
-                            try:
-                                for k in range(n):
-                                    callback(STIterate(
-                                        w=cw, h=ch, i=done - n + k + 1, i_max=actual_its,
-                                        loss=float(losses[k]),
-                                        time=t_prev + (t_now - t_prev) * (k + 1) / n,
-                                        gpu_ram=ram,
-                                    ))
-                            except KeyboardInterrupt:
-                                if self.mesh is None:
-                                    raise
-                                stop = True
+                            with span(f"callbacks@{scale}"):
+                                ram = peak_device_ram(self.device)
+                                try:
+                                    for k in range(n):
+                                        callback(STIterate(
+                                            w=cw, h=ch, i=done - n + k + 1, i_max=actual_its,
+                                            loss=float(losses[k]),
+                                            time=t_prev + (t_now - t_prev) * (k + 1) / n,
+                                            gpu_ram=ram,
+                                        ))
+                                except KeyboardInterrupt:
+                                    if self.mesh is None:
+                                        raise
+                                    stop = True
                         t_prev = t_now
                         # Under a mesh the ranks stop together, after this
                         # chunk: rank 0's interrupted callback or any rank's
                         # Ctrl-C (the launcher's SIGINT flag) stops them all.
-                        if self.mesh is not None and any_rank_stops(self.mesh, stop):
-                            raise KeyboardInterrupt
+                        if self.mesh is not None:
+                            with host_wait("stop-flag"):
+                                stops = any_rank_stops(self.mesh, stop)
+                            if stops:
+                                raise KeyboardInterrupt
 
-                    if runner.capture_seconds is not None:
-                        _add_phase(f"  capture@{scale}", runner.capture_seconds)
+                    sections = runner.section_ms() if T.DEBUG_TIMING else None
+                    if sections is not None:
+                        print(f"[timing] sections@{scale} (ms, last replay): "
+                              + ", ".join(f"{k} {v:.3f}" for k, v in sections.items()),
+                              flush=True)
                     # Each new scale starts from the previous scale's averaged
                     # iterate (ref :495-497); Adam's moments are carried over
                     # whole, to be resized. Then the runner, its graph and
                     # the buffers no longer needed go.
-                    with _phase_timer(f"scale-exit@{scale}", self.device):
+                    with span(f"scale-exit@{scale}", self.device):
                         opt_state = None
                         if optimizer == "adam":
                             opt_state = AdamState(self._whole(state.opt.mu),
@@ -821,7 +809,7 @@ class StyleTransfer:
                         ckpt_writer.close()
                     except Exception as err:
                         print(f"Warning: checkpoint write failed: {err}")
-        with _phase_timer("final-image"):
+        with span("final-image"):
             return self.get_image()
 
     def _submit_checkpoint(self, writer, path, state, optimizer, scale_idx, done,

@@ -20,11 +20,13 @@ each iteration as replays of CUDA graphs captured once per runner (once
 per scale in the engine; :class:`_Runner`), the port of the JAX runners'
 compiled chunk: Adam's and L-BFGS's step is one graph, the zoom iteration
 three (its head, one trial replayed while the search goes on, its tail);
-elsewhere the body runs eagerly.
+elsewhere the body runs eagerly. The runner's warm-up and capture are spans
+of the recorder (``utils/trace.py``), and the Adam and L-BFGS step times
+its sections (forward, loss, backward, update) inside its graph
+(:class:`_Sections`).
 """
 
 import functools
-import time
 from dataclasses import dataclass
 from typing import NamedTuple, Optional, Tuple
 
@@ -37,6 +39,7 @@ from .ops.cuda import ns_sqrtm as K
 from .ops.cuda import zoom_ls as ZL
 from .ops.cuda.ns_sqrtm import sqrtm_ns_lyap, trace_sqrtm_ns
 from .parallel.mesh import all_reduce_
+from .utils import trace as T
 from .utils.ema import EMAState, ema_update_
 from .zoom_lbfgs import (
     MAX_LINESEARCH_STEPS,
@@ -139,13 +142,15 @@ def _features_and_moments(cfg: StepConfig, mesh, image, params):
     return feats, moments
 
 
-def build_loss_fn(cfg: StepConfig, mesh=None):
+def build_loss_fn(cfg: StepConfig, mesh=None, mark=None):
     """Returns ``loss(image, params, consts) -> scalar tensor``.
 
     ``consts`` is ``{'content': {layer: feats}, 'style': {layer: target}}``
     where a style target is a ``W2Target`` (w2 mode) or a Gram matrix. With
     a ``mesh``, ``image`` and the content targets are this rank's slabs, the
     style targets the same on every rank, and the loss is the whole image's.
+    ``mark`` (a :class:`_Sections`' ``mark``) is called with 1 once the
+    trunk and the moments are done and with 2 once the scalar loss is.
     """
 
     def w2_total(moments, consts):
@@ -192,6 +197,8 @@ def build_loss_fn(cfg: StepConfig, mesh=None):
 
     def loss_fn(image, params, consts):
         feats, moments = _features_and_moments(cfg, mesh, image, params)
+        if mark is not None:
+            mark(1)
         content = 0.0
         for layer, w in zip(cfg.content_layers, cfg.content_weights):
             diff = feats[layer].float() - consts["content"][layer].float()
@@ -203,7 +210,10 @@ def build_loss_fn(cfg: StepConfig, mesh=None):
                                              torch.sum(torch.abs(diff)))
                 content = content + w * sse / (sabs + 1e-8)
         tv = L.tv_loss(feats[INPUT], mesh)
-        return content + style_total(moments, consts) + cfg.tv_weight * tv
+        loss = content + style_total(moments, consts) + cfg.tv_weight * tv
+        if mark is not None:
+            mark(2)
+        return loss
 
     return loss_fn
 
@@ -295,22 +305,64 @@ def _value_and_grad(loss_fn, params, consts):
     return value_and_grad
 
 
+class _Sections:
+    """Five marks in the step body (:func:`_make_step`) that split an
+    iteration into its sections: ``forward`` (the trunk with the moments at
+    its taps), ``loss`` (the W2 terms with the NS chain, content, TV),
+    ``backward`` (the image's gradient, with remat's recompute) and
+    ``update`` (the optimizer, clamp, EMA and the state's writes).
+
+    ``fired`` lists the marks of the runner's last call in the order they
+    fired (none in a call that only replays). While the runner captures
+    (``recording``), each mark also records a CUDA timing event as a node
+    of the graph (``external``), on the capture stream where its order
+    already joins; every replay then records them anew, and :meth:`ms`
+    reads the last replay's sections. Elsewhere the marks record no
+    event."""
+
+    NAMES = ("forward", "loss", "backward", "update")
+
+    def __init__(self):
+        self.fired, self.events, self.recording = [], None, False
+
+    def mark(self, i: int):
+        self.fired.append(i)
+        if self.recording:
+            self.events[i].record()
+
+    def arm(self):
+        """New events, recorded by the marks until the capture ends."""
+        self.events = [torch.cuda.Event(enable_timing=True, external=True)
+                       for _ in range(len(self.NAMES) + 1)]
+        self.recording = True
+
+    def ms(self):
+        """{section: ms} of the last replay (waiting for it to end)."""
+        self.events[-1].synchronize()
+        return {name: a.elapsed_time(b)
+                for name, a, b in zip(self.NAMES, self.events, self.events[1:])}
+
+
 def _make_step(cfg: StepConfig, apply, mesh=None):
     """Returns the in-place step body ``step_(params, consts, static) ->
     (static, loss)``: loss and gradient (image only) at ``static.image`` ->
     ``apply(opt, image, g) -> (image, opt)`` -> EMA, the new state written
-    into ``static``'s own tensors."""
-    loss_fn = build_loss_fn(cfg, mesh)
+    into ``static``'s own tensors; and its :class:`_Sections`."""
+    sections = _Sections()
+    loss_fn = build_loss_fn(cfg, mesh, sections.mark)
 
     def step_(params, consts, static: LoopState):
+        sections.mark(0)
         loss, g = _value_and_grad(loss_fn, params, consts)(static.image)
+        sections.mark(3)
         image, opt = apply(static.opt, static.image, g)
         ema_update_(static.ema, image, cfg.avg_decay)
         opt = _write_(static.opt, opt)
         static.image.copy_(image)
+        sections.mark(4)
         return static._replace(opt=opt), loss
 
-    return step_
+    return step_, sections
 
 
 def runs_as_graph(device, optimizer: str, mesh=None) -> bool:
@@ -418,21 +470,37 @@ class _Runner:
     allocator's cached blocks are released before a capture (the warm-up
     iteration's), so warm-up and capture do not hold two iterations'
     memory at once. A capture or
-    replay that fails raises. ``capture_seconds`` is the host time of the
-    last capture and its instantiation. The kernels' launch counts
+    replay that fails raises. The kernels' launch counts
     (``ops/cuda/ns_sqrtm.py``, ``ops/cuda/zoom_ls.py``) count each replay's
-    launches (a capture's own are taken back)."""
+    launches (a capture's own are taken back).
+
+    The warm-up iteration and the capture are spans of the recorder
+    (``utils/trace.py``), ``  warm-up`` and ``  capture`` followed by
+    ``label`` (the engine's ``@S``), and the synchronize before a capture
+    is a ``host_wait``; ``capture_seconds`` is the last capture span's
+    seconds. The Adam and L-BFGS step carries its :class:`_Sections`
+    (``sections``), whose events the capture puts in the graph:
+    :meth:`section_ms` reads the last replay's, and while a profiler runs
+    the runner records them in the recorder at its next call, and when the
+    recorder is read, stamped with that replay's launch."""
 
     def __init__(self, step, optimizer: str, mesh=None, eager: bool = False,
-                 phases: _ZoomPhases = None):
+                 phases: _ZoomPhases = None, sections: _Sections = None):
         self._step, self._optimizer, self._mesh = step, optimizer, mesh
-        self._eager, self._phases = eager, phases
+        self._eager, self._phases, self.sections = eager, phases, sections
         self._static = self._handed = self._inputs = self._count = None
         self._graphs = self._loss = None
         self._warm = False
+        self._stamp = self._sampled = None  # the last replay's launch, and the last sampled
         self.capture_seconds = self.linesearch_steps = None
+        self.label = ""
 
     def __call__(self, params, consts, state: LoopState, n_steps: int):
+        if self.sections is not None:
+            self.sections.fired = []
+            if torch._C._autograd._profiler_enabled():
+                self._sample()
+                T.RECORDER.set_sampler(self._sample)
         if state is not self._handed:
             self._load(state)
         if self._inputs is None or any(a is not b for a, b in zip(self._inputs,
@@ -453,7 +521,8 @@ class _Runner:
                 self._capture(params, consts, device)
                 self._replay(losses, k)
             else:
-                self._warm_up(params, consts, losses, k, device)
+                with T.span(f"  warm-up{self.label}"):
+                    self._warm_up(params, consts, losses, k, device)
             if zoom:
                 steps[k] = self._static.opt.linesearch_steps
         if self._count is not None:
@@ -470,9 +539,20 @@ class _Runner:
             self._count = int(opt.count)
             opt = opt._replace(count=torch.full((), float(opt.count), dtype=torch.float32,
                                                 device=state.image.device))
-        self._graphs = self._loss = None
+        self._graphs = self._loss = self._stamp = None
         self._warm = False
         self._static = _clone(state._replace(opt=opt))
+
+    def section_ms(self):
+        """{section: ms} of the last graph replay (waiting for it to end),
+        or None where no replay of sections ran."""
+        return None if self._stamp is None or self.sections is None else self.sections.ms()
+
+    def _sample(self):
+        """Records the last replay's sections in the recorder, once."""
+        if self._stamp != self._sampled and self.sections is not None:
+            T.RECORDER.sample("sections", self._stamp, self.sections.ms())
+            self._sampled = self._stamp
 
     def _warm_up(self, params, consts, losses, k, device):
         stream, main = _capture_stream(device), torch.cuda.current_stream(device)
@@ -488,29 +568,34 @@ class _Runner:
             parts = [lambda: self._step(params, consts, static)[1]]
         else:
             parts = [lambda: z.head(params, consts, static), z.trial, lambda: z.tail(static)]
-        torch.cuda.synchronize(device)
+        with T.host_wait("capture-sync"):
+            torch.cuda.synchronize(device)
         # The eager first iteration leaves its blocks in the allocator's
         # cache, which the capture's own pool cannot take, and the capture
         # cannot free them (no cudaFree while a stream captures): they are
         # released first, so that a canvas near the card's memory holds one
         # iteration's blocks at a time, not two.
         torch.cuda.empty_cache()
-        t0 = time.perf_counter()
         graphs, pool = [], None
-        for part in parts:
-            graph, before = torch.cuda.CUDAGraph(), _launch_counts()
-            # thread_local: the checkpoint writer and the image saver may
-            # fetch on their own threads and streams meanwhile, which
-            # "global" forbids.
-            with torch.cuda.graph(graph, pool=pool, stream=_capture_stream(device),
-                                  capture_error_mode="thread_local"):
-                out = part()
-            # The capture launched nothing: its counts move to the replays.
-            recorded = tuple(a - b for a, b in zip(_launch_counts(), before))
-            _add_launches(recorded, -1)
-            graphs.append((graph, recorded))
-            pool = graph.pool()
-        self.capture_seconds = time.perf_counter() - t0
+        with T.span(f"  capture{self.label}") as span:
+            if self.sections is not None:
+                self.sections.arm()
+            for part in parts:
+                graph, before = torch.cuda.CUDAGraph(), _launch_counts()
+                # thread_local: the checkpoint writer and the image saver may
+                # fetch on their own threads and streams meanwhile, which
+                # "global" forbids.
+                with torch.cuda.graph(graph, pool=pool, stream=_capture_stream(device),
+                                      capture_error_mode="thread_local"):
+                    out = part()
+                # The capture launched nothing: its counts move to the replays.
+                recorded = tuple(a - b for a, b in zip(_launch_counts(), before))
+                _add_launches(recorded, -1)
+                graphs.append((graph, recorded))
+                pool = graph.pool()
+            if self.sections is not None:
+                self.sections.recording = False
+        self.capture_seconds = (span.end_ns - span.start_ns) / 1e9
         self._loss = out if z is None else z.loss
         self._graphs = graphs
 
@@ -527,6 +612,7 @@ class _Runner:
             play(head)
             run_trials(lambda: play(trial), self._phases.go, self._phases.max_steps)
             play(tail)
+        self._stamp = T.now_ns()
         losses[k] = self._loss
 
 
@@ -538,7 +624,8 @@ def make_adam_runner(cfg: StepConfig, mesh=None, *, eager: bool = False):
         update, opt = _adam_apply(cfg, opt, g)
         return torch.clamp(image - update, 0.0, 1.0), opt
 
-    return _Runner(_make_step(cfg, apply, mesh), "adam", mesh, eager)
+    step_, sections = _make_step(cfg, apply, mesh)
+    return _Runner(step_, "adam", mesh, eager, sections=sections)
 
 
 class LBFGSState(NamedTuple):
@@ -675,9 +762,9 @@ def make_lbfgs_runner(cfg: StepConfig, mesh=None, *, eager: bool = False):
     iteration.
     """
     sharded = {} if mesh is None else {"mesh": mesh}  # the one-device call as before
-    step = _make_step(
+    step_, sections = _make_step(
         cfg, lambda opt, image, g: lbfgs_step(opt, image, g, lr=1.0, **sharded), mesh)
-    return _Runner(step, "lbfgs", mesh, eager)
+    return _Runner(step_, "lbfgs", mesh, eager, sections=sections)
 
 
 def make_lbfgs_zoom_runner(cfg: StepConfig, mesh=None, *, eager: bool = False):

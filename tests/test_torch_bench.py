@@ -36,18 +36,19 @@ torch.set_num_threads(2)
 
 def test_phase_totals_match_jax_engine_names(content_pil, style_pil, tmp_path):
     """One 64 px scale, 4 iterations in chunks of 2 with a checkpoint every
-    2: the JAX engine's phase names (``engine.py`` of the JAX package), the
-    nested target rows indented, and ``reset`` clearing the store."""
+    2 and a callback: the JAX engine's phase names (``engine.py`` of the JAX
+    package), the nested target rows indented, the port's ``prologue`` and
+    ``callbacks@S``, and ``reset`` clearing the store."""
     phase_totals(reset=True)
     st = StyleTransfer(device="cpu", weights=random_params(0), callback_chunk=2)
     st.stylize(content_pil, [style_pil], min_scale=64, end_scale=64, iterations=4,
                initial_iterations=4, checkpoint=str(tmp_path / "ck.npz"),
-               checkpoint_every=2)
+               checkpoint_every=2, callback=lambda it: None)
     ph = phase_totals()
     assert set(ph) == {
         "scale-entry@64", "targets@64", "  targets:content-feats",
         "  targets:style-stats", "  targets:finalize", "chunk1@64x2", "chunk@64x2",
-        "ckpt-snapshot@64", "scale-exit@64", "final-image"}
+        "ckpt-snapshot@64", "scale-exit@64", "final-image", "prologue", "callbacks@64"}
     fams = {k.split("@")[0] for k in ph if not k.startswith(" ")}
     assert {"targets", "scale-entry", "final-image", "chunk1", "chunk"} <= fams
     assert all(v >= 0.0 for v in ph.values())
@@ -111,8 +112,8 @@ def test_pyramid_bench_record():
     scale = rec["scales"]["64x48"]
     assert set(scale) == {"wall", "iters", "ms_per_iter", "peak_mib"}
     assert scale["iters"] == 3 and scale["peak_mib"] == 0.0
-    assert set(rec["phases"]) == {"scale-entry", "targets", "chunk1", "scale-exit",
-                                  "final-image"}
+    assert set(rec["phases"]) == {"prologue", "scale-entry", "targets", "chunk1",
+                                  "callbacks", "scale-exit", "final-image"}
     # Each figure is rounded to 0.01 s.
     assert sum(rec["phases"].values()) + rec["untimed"] == pytest.approx(
         rec["value"], abs=0.011)
