@@ -405,11 +405,11 @@ class StyleTransfer:
 
     def _step_params(self):
         """The params as the trunk consumes them: cast to ``compute_dtype``
-        once per engine, not once per step."""
+        and the trunk's memory format once per engine, not once per step."""
         if self.compute_dtype is None:
             return self.params
         if self._params_cast is None:
-            self._params_cast = cast_params(self.params, self.compute_dtype)
+            self._params_cast = cast_params(self.params, self.compute_dtype, self.mesh)
         return self._params_cast
 
     def _scale_remat(self, ch, cw, optimizer):

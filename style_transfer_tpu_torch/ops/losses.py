@@ -1,8 +1,10 @@
 """Loss functions for optimization-based style transfer (NCHW).
 
-Port of ``style_transfer_tpu/ops/losses.py``. Feature maps are NCHW here
-(the JAX package's are NHWC; tests transpose at the boundary); statistics
-(means, Gram / second-raw-moment matrices) live in channel space.
+Port of ``style_transfer_tpu/ops/losses.py``. Feature maps are NCHW in
+shape here (the JAX package's are NHWC; tests transpose at the boundary),
+and channels_last in memory from a bf16 trunk (``models/vgg.py``), which
+the moments read as they lie; statistics (means, Gram / second-raw-moment
+matrices) live in channel space.
 
 * ``scaled_mse``   — MSE scaled so its gradient L1 norm is ~1.
 * ``content_mse``  — plain MSE against fixed target features.
@@ -91,35 +93,50 @@ def content_scaled(x, target, eps: float = 1e-8, mesh=None):
 
 
 class _Moments(torch.autograd.Function):
-    """(N, C, P) features of any float dtype -> the FP32 (N, C) mean over
-    the pixels (their sum with ``mean=False``) and (N, C, C) sum over the
-    pixels of f fᵀ. The backward makes one full-resolution tensor, (G₂ +
-    G₂ᵀ) f plus the first output's gradient spread over the pixels, and
-    keeps the features in their own dtype. Autograd's backward of the same
-    ops would keep an FP32 copy of bf16 features and make four: the
-    matmul's two gradients, their sum and the mean's, which at the first
-    tap set the step's peak memory."""
+    """Features of any float dtype, (N, C, P) or, with ``pixels_first``,
+    (N, P, C) -> the FP32 (N, C) mean over the pixels (their sum with
+    ``mean=False``) and (N, C, C) sum over the pixels of f fᵀ. The backward
+    makes one full-resolution tensor, (G₂ + G₂ᵀ) f plus the first output's
+    gradient spread over the pixels, in the features' own layout, and keeps
+    the features in their own dtype. Autograd's backward of the same ops
+    would keep an FP32 copy of bf16 features and make four: the matmul's
+    two gradients, their sum and the mean's, which at the first tap set the
+    step's peak memory."""
 
     @staticmethod
-    def forward(ctx, f, mean: bool):
+    def forward(ctx, f, mean: bool, pixels_first: bool):
         ctx.save_for_backward(f)
-        ctx.count = f.shape[-1] if mean else None
+        ctx.pixels_first = pixels_first
+        p = 1 if pixels_first else 2
+        ctx.count = f.shape[p] if mean else None
         f32 = _f32(f)
-        first = torch.mean(f32, dim=2) if mean else torch.sum(f32, dim=2)
+        first = torch.mean(f32, dim=p) if mean else torch.sum(f32, dim=p)
+        if pixels_first:
+            return first, f32.transpose(1, 2) @ f32
         return first, f32 @ f32.transpose(1, 2)
 
     @staticmethod
     def backward(ctx, g1, g2):
         (f,) = ctx.saved_tensors
-        out = (g2 + g2.transpose(1, 2)) @ _f32(f)
-        out.add_((g1 if ctx.count is None else g1 / ctx.count).unsqueeze(-1))
-        return out.to(f.dtype), None
+        g1 = g1 if ctx.count is None else g1 / ctx.count
+        if ctx.pixels_first:
+            out = _f32(f) @ (g2 + g2.transpose(1, 2))
+            out.add_(g1.unsqueeze(1))
+        else:
+            out = (g2 + g2.transpose(1, 2)) @ _f32(f)
+            out.add_(g1.unsqueeze(-1))
+        return out.to(f.dtype), None, None
 
 
 def _moments(feats, mean: bool = True):
     """(N, C, H, W) -> (mean or sum over pixels, sum over pixels of f fᵀ),
-    in FP32 (see :class:`_Moments`)."""
-    return _Moments.apply(feats.flatten(2), mean)
+    in FP32 (see :class:`_Moments`). A channels_last tap (the bf16 trunk's)
+    is taken as (N, P, C) and an NCHW one as (N, C, P), each a view, so
+    neither is copied, and its gradient comes back in the tap's layout."""
+    if feats.is_contiguous(memory_format=torch.channels_last) and not feats.is_contiguous():
+        n, c = feats.shape[:2]
+        return _Moments.apply(feats.permute(0, 2, 3, 1).reshape(n, -1, c), mean, True)
+    return _Moments.apply(feats.flatten(2), mean, False)
 
 
 def gram_matrix(feats, mesh=None):

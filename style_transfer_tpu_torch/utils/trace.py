@@ -11,8 +11,8 @@ scale the iterate belongs to (0 on the CPU).
 
 The span recorder (:class:`SpanRecorder`; the process's own is
 :data:`RECORDER`, reached through :func:`span`, :func:`host_wait`,
-:func:`phase_totals` and :func:`events`) is always on. It keeps, in a
-bounded ring of :class:`Event`:
+:func:`counter`, :func:`phase_totals` and :func:`events`) is always on. It
+keeps, in a bounded ring of :class:`Event`:
 
 * spans: a phase of the engine or the step runner, with its parent's index,
   stamped in ns on ``time.time_ns()``'s base (one anchor to the monotonic
@@ -26,9 +26,13 @@ bounded ring of :class:`Event`:
   closing synchronize, a chunk's read of its losses, the synchronize before
   a capture, a read of the image), with the time it blocked;
 * ``sections``: the step runner's section times of one graph replay, in
-  ms, stamped with the replay's launch.
+  ms, stamped with the replay's launch;
+* ``counter``s: a named value the program records where it decides
+  something, stamped when it does: ``trunk-layout``, the memory format a
+  call of the VGG trunk ran (``channels_last`` or ``nchw``), once a call
+  (an eager call, a warm-up or a capture; a replay runs no Python).
 
-``STT_DEBUG_TIMING`` prints each span's time as it ends.
+``STT_DEBUG_TIMING`` prints each span's time as it ends, and each counter.
 """
 
 import collections
@@ -45,11 +49,11 @@ import torch
 
 __all__ = ["STIterate", "TraceRecorder", "peak_device_ram", "reset_peak_device_ram",
            "DEBUG_TIMING", "Event", "SpanRecorder", "RECORDER", "now_ns", "span",
-           "host_wait", "phase_totals", "events", "self_ns"]
+           "host_wait", "counter", "phase_totals", "events", "self_ns"]
 
 DEBUG_TIMING = bool(os.environ.get("STT_DEBUG_TIMING"))
 
-SPAN, HOST_WAIT, SECTIONS = "span", "host_wait", "sections"
+SPAN, HOST_WAIT, SECTIONS, COUNTER = "span", "host_wait", "sections", "counter"
 
 _EPOCH_OFFSET_NS = time.time_ns() - time.perf_counter_ns()
 
@@ -104,11 +108,12 @@ class TraceRecorder:
 
 
 class Event:
-    """One record of the ring: ``kind`` (``span``, ``host_wait`` or
-    ``sections``), ``index`` (one more than the record before), ``name``,
-    ``parent`` (the index of the span open around it on its thread, or
-    None), ``start_ns`` and ``end_ns`` (None while a span is open; a
-    sample's are its stamp), and ``value`` (a sample's {section: ms})."""
+    """One record of the ring: ``kind`` (``span``, ``host_wait``,
+    ``sections`` or ``counter``), ``index`` (one more than the record
+    before), ``name``, ``parent`` (the index of the span open around it on
+    its thread, or None), ``start_ns`` and ``end_ns`` (None while a span is
+    open; a sample's and a counter's are its stamp), and ``value`` (a
+    sample's {section: ms}, a counter's value)."""
 
     __slots__ = ("kind", "index", "name", "parent", "start_ns", "end_ns", "value")
 
@@ -118,10 +123,11 @@ class Event:
 
 
 class SpanRecorder:
-    """Spans, host waits and section samples in a ring of ``capacity``
-    records (the oldest go first), and the seconds of each span name. A
-    default 512x384 image records about 250 (its spans and 102 host
-    waits), so the ring holds the last 260 or so."""
+    """Spans, host waits, section samples and counters in a ring of
+    ``capacity`` records (the oldest go first), and the seconds of each
+    span name. A default 512x384 image records about 270 (its spans, 102
+    host waits and 20 ``trunk-layout`` counters), so the ring holds the
+    last 240 or so."""
 
     def __init__(self, capacity: int = 1 << 16):
         self._ring = collections.deque(maxlen=capacity)
@@ -195,6 +201,13 @@ class SpanRecorder:
         """Records ``value`` (section: ms) stamped ``stamp_ns``."""
         self._record(SECTIONS, name, stamp_ns, stamp_ns, value)
 
+    def counter(self, name: str, value):
+        """Records counter ``name`` at ``value``, stamped now."""
+        stamp = now_ns()
+        self._record(COUNTER, name, stamp, stamp, value)
+        if DEBUG_TIMING:
+            print(f"[counter] {name}: {value}", flush=True)
+
     def set_sampler(self, method):
         """``method`` (a bound method, held weakly) is called before the
         ring is read, to record what it holds back."""
@@ -235,6 +248,10 @@ def span(name: str, device=None):
 
 def host_wait(name: str):
     return RECORDER.host_wait(name)
+
+
+def counter(name: str, value):
+    RECORDER.counter(name, value)
 
 
 def phase_totals(reset: bool = False) -> dict:

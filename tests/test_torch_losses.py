@@ -124,3 +124,58 @@ def test_tv_loss():
     # measured: value 6.5e-8, gradient 4.5e-9
     img = np.random.RandomState(7).rand(1, 7, 9, 3).astype(np.float32)
     _check(JL.tv_loss, TL.tv_loss, img)
+
+
+def _tap(seed, fmt, dtype):
+    """A post-ReLU-like (1, 16, 9, 11) tap in memory format ``fmt``."""
+    return _nchw(_feats(seed, (1, 9, 11, 16))).to(dtype).contiguous(memory_format=fmt)
+
+
+def _moments_and_grad(tap, mean):
+    """``_moments``' two outputs and the tap's gradient under fixed
+    seeded output gradients."""
+    rng = np.random.RandomState(40)
+    g1 = torch.from_numpy(rng.normal(size=(1, 16)).astype(np.float32))
+    g2 = torch.from_numpy(rng.normal(size=(1, 16, 16)).astype(np.float32))
+    f = tap.detach().requires_grad_(True)
+    first, second = TL._moments(f, mean)
+    (g,) = torch.autograd.grad((first * g1).sum() + (second * g2).sum(), f)
+    return first.detach(), second.detach(), g, (g1, g2)
+
+
+@pytest.mark.parametrize("mean", [True, False], ids=["mean", "sum"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_moments_of_a_channels_last_tap(dtype, mean):
+    """A channels_last tap's moments, taken as (N, P, C) with no copy, equal
+    the NCHW tap's (N, C, P) ones (rtol 1e-6; the same FP32 products summed
+    in another order), and its gradient comes back channels_last in the
+    tap's dtype (FP32 to rtol 1e-6; bf16 within one bf16 rounding of the
+    gradient's max)."""
+    cl = _moments_and_grad(_tap(41, torch.channels_last, dtype), mean)
+    nchw = _moments_and_grad(_tap(41, torch.contiguous_format, dtype), mean)
+    for a, b in zip(cl[:2], nchw[:2]):
+        assert a.dtype == torch.float32
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6, atol=0)
+    g, ref = cl[2], nchw[2]
+    assert g.dtype == dtype and ref.is_contiguous()
+    assert g.is_contiguous(memory_format=torch.channels_last) and not g.is_contiguous()
+    if dtype == torch.float32:
+        np.testing.assert_allclose(g.numpy(), ref.numpy(), rtol=1e-6,
+                                   atol=1e-6 * float(ref.abs().max()))
+    else:
+        err = float((g.float() - ref.float()).abs().max())
+        assert err <= 2**-8 * float(ref.float().abs().max()), err
+
+
+def test_moments_of_an_nchw_tap_are_unchanged():
+    """The NCHW tap's path (every FP32 and sharded tap) is the (N, C, P)
+    one bit for bit: the mean, f fᵀ, and the backward (G₂ + G₂ᵀ) f plus the
+    spread mean gradient, as those ops compute them."""
+    tap = _tap(42, torch.contiguous_format, torch.float32)
+    first, second, g, (g1, g2) = _moments_and_grad(tap, True)
+    f = tap.flatten(2)
+    assert torch.equal(first, torch.mean(f, dim=2))
+    assert torch.equal(second, f @ f.transpose(1, 2))
+    want = (g2 + g2.transpose(1, 2)) @ f
+    want.add_((g1 / f.shape[-1]).unsqueeze(-1))
+    assert torch.equal(g, want.view_as(tap))

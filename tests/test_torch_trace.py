@@ -193,3 +193,45 @@ def test_sections_time_the_replayed_graph():
     total = sum(run.section_ms().values())
     assert 0.5 * per_iter < total <= 1.05 * per_iter
     np.testing.assert_array_less(0, list(mine[-1].value.values()))
+
+
+def test_counter_is_stamped_inside_its_span():
+    rec = T.SpanRecorder()
+    with rec.span("outer"):
+        rec.counter("trunk-layout", "nchw")
+    outer, ev = sorted(rec.events(), key=lambda e: e.index)
+    assert (ev.kind, ev.name, ev.value, ev.parent) == (T.COUNTER, "trunk-layout", "nchw",
+                                                       outer.index)
+    assert outer.start_ns <= ev.start_ns == ev.end_ns <= outer.end_ns
+    assert rec.totals() == {"outer": pytest.approx((outer.end_ns - outer.start_ns) / 1e9)}
+
+
+@pytest.mark.parametrize("dtype,sharded,layout", [
+    (torch.bfloat16, False, "channels_last"), (None, False, "nchw"),
+    (torch.bfloat16, True, "nchw")], ids=["bf16", "f32", "bf16-mesh"])
+def test_trunk_layout_counter(dtype, sharded, layout):
+    """Each call of the trunk records the format it ran: channels_last for
+    bf16 on one device, NCHW for FP32 and under a mesh (here a 1x1 one);
+    the eager step calls the trunk once an iteration."""
+    from style_transfer_tpu_torch.models.vgg import cast_params, extract_features
+    from style_transfer_tpu_torch.models.weights import params_from_jax
+    from style_transfer_tpu_torch.parallel.mesh import Mesh
+
+    params = params_from_jax(random_params(0))
+    if dtype is not None:
+        params = cast_params(params, dtype)
+    mesh = Mesh(grid=(1, 1), rank=0, device=torch.device("cpu")).on_canvas(32, 32)
+    first = T.events()[-1].index if T.events() else -1
+    with torch.no_grad():
+        feats = extract_features(params, torch.rand(1, 3, 32, 32), (1, 6), compute_dtype=dtype,
+                                 mesh=mesh if sharded else None)
+    counts = [e for e in T.events() if e.kind == T.COUNTER and e.index > first]
+    assert [(e.name, e.value) for e in counts] == [("trunk-layout", layout)]
+    assert feats[6].is_contiguous() is (layout == "nchw")
+    if not sharded:
+        runner, params, consts, state = bench.build_step(
+            32, 32, device="cpu", compute_dtype="f32" if dtype is None else "bf16")
+        first = T.events()[-1].index
+        runner(params, consts, state, 3)
+        counts = [e.value for e in T.events() if e.kind == T.COUNTER and e.index > first]
+        assert counts == [layout] * 3

@@ -109,3 +109,89 @@ def test_replicate_pad_equals_f_pad(pad):
     (a,) = torch.autograd.grad(ours, x, g)
     (b,) = torch.autograd.grad(ref, x, g)
     torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12)
+
+
+def _pin_nchw(monkeypatch):
+    """Pins the trunk's layout rule to NCHW, the layout every trunk ran
+    before the bf16 trunk went channels_last."""
+    monkeypatch.setattr(TV, "trunk_memory_format",
+                        lambda dtype, mesh=None: torch.contiguous_format)
+
+
+@pytest.mark.parametrize("pooling", ["max", "average", "l2"])
+def test_bf16_trunk_runs_channels_last(pooling, tparams, monkeypatch):
+    """The bf16 trunk's kernels and taps are channels_last and its taps
+    equal the NCHW bf16 trunk's within a bf16 rounding of the tap's max
+    (measured: bit-identical on this CPU); the FP32 trunk's stay NCHW."""
+    img = _to_nchw(_image(3))
+    params = TV.cast_params(tparams, torch.bfloat16)
+    assert params["conv2_kernel"].is_contiguous(memory_format=torch.channels_last)
+    assert params["conv2_bias"].dtype == torch.bfloat16
+    with torch.no_grad():
+        f32 = TV.extract_features(tparams, img, TAPS, pooling=pooling)
+        cl = TV.extract_features(params, img, TAPS, pooling=pooling,
+                                 compute_dtype=torch.bfloat16)
+        _pin_nchw(monkeypatch)
+        nchw = TV.extract_features(params, img, TAPS, pooling=pooling,
+                                   compute_dtype=torch.bfloat16)
+    assert cl[TV.INPUT] is img
+    for layer in TAPS:
+        assert cl[layer].is_contiguous(memory_format=torch.channels_last)
+        assert not cl[layer].is_contiguous()
+        assert nchw[layer].is_contiguous() and f32[layer].is_contiguous()
+        a, b = cl[layer].float().numpy(), nchw[layer].float().numpy()
+        assert np.abs(a - b).max() <= 2**-8 * np.abs(b).max(), layer
+
+
+@pytest.mark.parametrize("fmt", [torch.contiguous_format, torch.channels_last],
+                         ids=["nchw", "channels_last"])
+def test_max_pool_ties_go_to_the_first_maximum(fmt):
+    """On integer-valued input, with ties in most windows, the gradient of
+    each window goes to its first maximum in row-major order in either
+    layout (odd sizes: the last row and column are floored away)."""
+    x = np.random.RandomState(5).randint(0, 3, size=(1, 4, 9, 11)).astype(np.float32)
+    g = np.arange(1, 1 + 4 * 4 * 5, dtype=np.float32).reshape(1, 4, 4, 5)
+    want = np.zeros_like(x)
+    for c in range(4):
+        for i in range(4):
+            for j in range(5):
+                k = int(np.argmax(x[0, c, 2 * i:2 * i + 2, 2 * j:2 * j + 2]))  # first max
+                want[0, c, 2 * i + k // 2, 2 * j + k % 2] = g[0, c, i, j]
+    xt = torch.from_numpy(x).contiguous(memory_format=fmt).requires_grad_(True)
+    y = pool2x2(xt, "max")
+    assert y.is_contiguous(memory_format=fmt)
+    (got,) = torch.autograd.grad(y, xt, torch.from_numpy(g).contiguous(memory_format=fmt))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_first_conv_of_a_channels_last_trunk_matches_conv2d():
+    """conv1_1 of a channels_last trunk (NCHW in, channels_last out, the
+    data gradient by the channels_last kernel, handed back NCHW) against
+    ``F.conv2d``'s value and gradient, in float64."""
+    import torch.nn.functional as F
+
+    rng = np.random.RandomState(6)
+    x0 = torch.from_numpy(rng.normal(size=(1, 3, 10, 12)))
+    k = torch.from_numpy(rng.normal(size=(8, 3, 3, 3)))
+    b = torch.from_numpy(rng.normal(size=(8,)))
+    g = torch.from_numpy(rng.normal(size=(1, 8, 8, 10)))
+    x, ref_x = x0.clone().requires_grad_(True), x0.clone().requires_grad_(True)
+    y = TV._FirstConv.apply(x, k.contiguous(memory_format=torch.channels_last), b)
+    ref = F.conv2d(ref_x, k, b)
+    assert y.is_contiguous(memory_format=torch.channels_last) and not y.is_contiguous()
+    torch.testing.assert_close(y, ref, rtol=1e-12, atol=1e-12)
+    (gx,) = torch.autograd.grad(y, x, g.contiguous(memory_format=torch.channels_last))
+    (ref_gx,) = torch.autograd.grad(ref, ref_x, g)
+    assert gx.is_contiguous()
+    torch.testing.assert_close(gx, ref_gx, rtol=1e-12, atol=1e-12)
+
+
+def test_first_conv_of_a_channels_last_trunk_refuses_weight_gradients():
+    """conv1_1 of a channels_last trunk gives the image's gradient only: a
+    backward that asks for the kernel's gradient raises rather than
+    handing back None."""
+    x = torch.zeros(1, 3, 6, 6, dtype=torch.float64, requires_grad=True)
+    k = torch.ones(4, 3, 3, 3, dtype=torch.float64, requires_grad=True)
+    y = TV._FirstConv.apply(x, k, torch.zeros(4, dtype=torch.float64))
+    with pytest.raises(NotImplementedError, match="image's gradient only"):
+        torch.autograd.grad(y.sum(), (x, k))
