@@ -23,7 +23,9 @@ three (its head, one trial replayed while the search goes on, its tail);
 elsewhere the body runs eagerly. The runner's warm-up and capture are spans
 of the recorder (``utils/trace.py``), and the Adam and L-BFGS step times
 its sections (forward, loss, backward, update) inside its graph
-(:class:`_Sections`).
+(:class:`_Sections`); the zoom runner times its trial graph the same way,
+records each read of the search's ``go`` as a host wait and counts the
+trials of each call (the ``zoom-trials`` counter).
 """
 
 import functools
@@ -306,11 +308,14 @@ def _value_and_grad(loss_fn, params, consts):
 
 
 class _Sections:
-    """Five marks in the step body (:func:`_make_step`) that split an
-    iteration into its sections: ``forward`` (the trunk with the moments at
-    its taps), ``loss`` (the W2 terms with the NS chain, content, TV),
-    ``backward`` (the image's gradient, with remat's recompute) and
-    ``update`` (the optimizer, clamp, EMA and the state's writes).
+    """Marks that split a captured part into sections, one more mark than
+    ``names``. The step body's (:func:`_make_step`) are five, ``NAMES``:
+    ``forward`` (the trunk with the moments at its taps), ``loss`` (the W2
+    terms with the NS chain, content, TV), ``backward`` (the image's
+    gradient, with remat's recompute) and ``update`` (the optimizer, clamp,
+    EMA and the state's writes). The zoom runner's are two, around one
+    trial (``trial``: the loss and gradient at the trial point and the line
+    search's step).
 
     ``fired`` lists the marks of the runner's last call in the order they
     fired (none in a call that only replays). While the runner captures
@@ -322,7 +327,8 @@ class _Sections:
 
     NAMES = ("forward", "loss", "backward", "update")
 
-    def __init__(self):
+    def __init__(self, names=NAMES):
+        self.names = names
         self.fired, self.events, self.recording = [], None, False
 
     def mark(self, i: int):
@@ -333,14 +339,14 @@ class _Sections:
     def arm(self):
         """New events, recorded by the marks until the capture ends."""
         self.events = [torch.cuda.Event(enable_timing=True, external=True)
-                       for _ in range(len(self.NAMES) + 1)]
+                       for _ in range(len(self.names) + 1)]
         self.recording = True
 
     def ms(self):
         """{section: ms} of the last replay (waiting for it to end)."""
         self.events[-1].synchronize()
         return {name: a.elapsed_time(b)
-                for name, a, b in zip(self.NAMES, self.events, self.events[1:])}
+                for name, a, b in zip(self.names, self.events, self.events[1:])}
 
 
 def _make_step(cfg: StepConfig, apply, mesh=None):
@@ -396,17 +402,20 @@ class _ZoomPhases:
     and replays apart: :meth:`head` (loss and gradient at the iterate, the
     L-BFGS direction, the line search's start: :class:`ZoomLBFGSUpdate`),
     :meth:`trial` (one trial, run while the search's ``go`` holds:
-    :func:`run_trials`) and :meth:`tail` (the accepted step, the state
+    :meth:`run_trials`) and :meth:`tail` (the accepted step, the state
     written, EMA). :meth:`step_` runs them eagerly, in the same order. What
     one part hands the next (the direction, the search's state) stays
     referenced here, so the graphs' shared pool keeps it. The optimizer
     state is written before the image: it keeps the previous iterate, the
-    image itself."""
+    image itself. A trial's two marks (``sections``, :class:`_Sections`)
+    time it inside its graph; ``trials`` counts the trials run since the
+    runner last set it to 0."""
 
     def __init__(self, cfg: StepConfig, mesh=None):
         self._loss_fn, self._decay = build_loss_fn(cfg, mesh), cfg.avg_decay
         self._mesh, self.max_steps = mesh, MAX_LINESEARCH_STEPS
         self.loss = self._update = None
+        self.sections, self.trials = _Sections(("trial",)), 0
 
     def head(self, params, consts, static: LoopState):
         value_and_grad = _value_and_grad(self._loss_fn, params, consts)
@@ -419,7 +428,16 @@ class _ZoomPhases:
         return self._update.search.go
 
     def trial(self):
+        self.sections.mark(0)
         self._update.search.trial()
+        self.sections.mark(1)
+
+    def run_trials(self, trial) -> int:
+        """``trial`` (:meth:`trial`, or the replay of its graph) run by
+        :func:`run_trials`, and counted; returns how many ran."""
+        n = run_trials(trial, self.go, self.max_steps)
+        self.trials += n
+        return n
 
     def tail(self, static: LoopState):
         image, opt = self._update.result()
@@ -429,7 +447,7 @@ class _ZoomPhases:
 
     def step_(self, params, consts, static: LoopState):
         self.head(params, consts, static)
-        run_trials(self.trial, self.go, self.max_steps)
+        self.run_trials(self.trial)
         self.tail(static)
         return static, self.loss
 
@@ -479,10 +497,13 @@ class _Runner:
     ``label`` (the engine's ``@S``), and the synchronize before a capture
     is a ``host_wait``; ``capture_seconds`` is the last capture span's
     seconds. The Adam and L-BFGS step carries its :class:`_Sections`
-    (``sections``), whose events the capture puts in the graph:
-    :meth:`section_ms` reads the last replay's, and while a profiler runs
-    the runner records them in the recorder at its next call, and when the
-    recorder is read, stamped with that replay's launch."""
+    (``sections``), the zoom runner its trial's, whose events the capture
+    puts in the graph: :meth:`section_ms` reads the last replay's, and while
+    a profiler runs the runner records them in the recorder at its next
+    call, and when the recorder is read, stamped with that replay's launch.
+    The zoom runner also records each read of ``go`` as a ``host_wait``
+    (:func:`run_trials`) and, at the end of each call, the counter
+    ``zoom-trials``: the trials that call ran."""
 
     def __init__(self, step, optimizer: str, mesh=None, eager: bool = False,
                  phases: _ZoomPhases = None, sections: _Sections = None):
@@ -512,6 +533,8 @@ class _Runner:
         losses = torch.empty(n_steps, dtype=torch.float32, device=device)
         zoom = self._phases is not None
         steps = torch.empty(n_steps, dtype=torch.int32, device=device) if zoom else None
+        if zoom:
+            self._phases.trials = 0
         for k in range(n_steps):
             if not graphed:
                 self._static, losses[k] = self._step(params, consts, self._static)
@@ -525,6 +548,8 @@ class _Runner:
                     self._warm_up(params, consts, losses, k, device)
             if zoom:
                 steps[k] = self._static.opt.linesearch_steps
+        if zoom:
+            T.counter("zoom-trials", self._phases.trials)
         if self._count is not None:
             self._count += n_steps
         s = self._static
@@ -610,7 +635,7 @@ class _Runner:
         else:  # the zoom iteration: its head, the trials, its tail
             head, trial, tail = self._graphs
             play(head)
-            run_trials(lambda: play(trial), self._phases.go, self._phases.max_steps)
+            self._phases.run_trials(lambda: play(trial))
             play(tail)
         self._stamp = T.now_ns()
         losses[k] = self._loss
@@ -776,4 +801,5 @@ def make_lbfgs_zoom_runner(cfg: StepConfig, mesh=None, *, eager: bool = False):
     gradient at each iterate are computed anew, not taken from the line
     search's last trial, so the evaluations equal the reference's."""
     phases = _ZoomPhases(cfg, mesh)
-    return _Runner(phases.step_, "lbfgs-zoom", mesh, eager, phases=phases)
+    return _Runner(phases.step_, "lbfgs-zoom", mesh, eager, phases=phases,
+                   sections=phases.sections)

@@ -24,13 +24,18 @@ keeps, in a bounded ring of :class:`Event`:
   (an op's range, which the host's events show);
 * ``host_wait``s: each point where the host blocks on the device (a span's
   closing synchronize, a chunk's read of its losses, the synchronize before
-  a capture, a read of the image), with the time it blocked;
+  a capture, a read of the image, the zoom line search's read of ``go``
+  after each of its trials but a search's last permitted one), with the
+  time it blocked;
 * ``sections``: the step runner's section times of one graph replay, in
-  ms, stamped with the replay's launch;
+  ms, stamped with the replay's launch (the zoom runner's: ``trial``, one
+  replay of its trial graph);
 * ``counter``s: a named value the program records where it decides
   something, stamped when it does: ``trunk-layout``, the memory format a
   call of the VGG trunk ran (``channels_last`` or ``nchw``), once a call
-  (an eager call, a warm-up or a capture; a replay runs no Python).
+  (an eager call, a warm-up or a capture; a replay runs no Python);
+  ``zoom-trials``, the line-search trials one call of the zoom runner ran
+  (eager or replayed), at the call's end.
 
 ``STT_DEBUG_TIMING`` prints each span's time as it ends, and each counter.
 """

@@ -30,6 +30,7 @@ import torch
 
 from .ops.cuda.zoom_ls import COUNT, FAILED, STEPSIZE, ls_init, ls_step_
 from .parallel.mesh import all_reduce_
+from .utils.trace import host_wait
 
 __all__ = [
     "MAX_LINESEARCH_STEPS",
@@ -166,13 +167,18 @@ class ZoomLinesearch:
 def run_trials(trial: Callable, go: torch.Tensor,
                max_linesearch_steps: int = MAX_LINESEARCH_STEPS) -> int:
     """Runs ``trial()`` once, then again while the search's ``go`` holds
-    (read to the host after each trial, the search's one read), at most
+    (read to the host after each trial, the search's one read, a
+    ``host_wait`` named ``go`` of the recorder), at most
     ``max_linesearch_steps`` times in all; returns how many ran. ``trial``
     is :meth:`ZoomLinesearch.trial`, or the replay of a CUDA graph of it
     (``step._Runner``)."""
     trial()
     n = 1
-    while n < max_linesearch_steps and bool(go):
+    while n < max_linesearch_steps:
+        with host_wait("go"):
+            more = bool(go)
+        if not more:
+            break
         trial()
         n += 1
     return n

@@ -5,10 +5,13 @@ The recorder's nesting, parent indices, self time and bounded ring; its
 clock against ``time.time_ns()`` and against ``torch.profiler``'s raw
 events (a span opens a profiler range while a profiler runs); the
 host waits of a tiny ``stylize``; the step's section marks in an eager
-iteration, and the runner's one sample per replay. The sections inside a
-captured graph run on the card only (``-m cuda``).
+iteration, and the runner's one sample per replay; the zoom runner's reads
+of ``go``, its ``zoom-trials`` counter and its trial's marks, none of which
+an Adam run records. The sections inside a captured graph, and the trial's,
+run on the card only (``-m cuda``).
 """
 
+import functools
 import time
 
 import numpy as np
@@ -16,10 +19,21 @@ import pytest
 import torch
 
 from style_transfer_tpu_torch import StyleTransfer, bench
-from style_transfer_tpu_torch.models.weights import random_params
+from style_transfer_tpu_torch.models import weights
 from style_transfer_tpu_torch.utils import trace as T
 
 torch.set_num_threads(2)
+
+# The VGG-19 weights of seed 0, drawn once for the module: the tests and
+# ``bench.build_step`` take them nine times, at 0.65 s a draw.
+random_params = functools.lru_cache(maxsize=None)(weights.random_params)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _weights_drawn_once():
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(bench, "random_params", random_params)
+        yield
 
 
 def _spans(records):
@@ -142,14 +156,47 @@ def test_stylize_records_a_host_wait_per_chunk_read_and_phase_sync(content_pil, 
         "callbacks", "scale-exit", "final-image"]
 
 
+def _zoom_records(first):
+    """The zoom runner's records after index ``first``: its ``go`` waits,
+    its ``zoom-trials`` counters and its ``trial`` samples."""
+    records = [e for e in T.events() if e.index > first]
+    return ([e for e in records if e.kind == T.HOST_WAIT and e.name == "go"],
+            [e for e in records if e.kind == T.COUNTER and e.name == "zoom-trials"],
+            [e for e in records if e.kind == T.SECTIONS and "trial" in e.value])
+
+
 def test_section_marks_fire_in_order_once_per_eager_iteration():
     runner, params, consts, state = bench.build_step(32, 32, device="cpu")
     run = runner.run
+    first = T.events()[-1].index if T.events() else -1
     state, _ = runner(params, consts, state, 3)
     assert run.sections.fired == [0, 1, 2, 3, 4] * 3
     assert run.section_ms() is None  # no replay
     runner(params, consts, state, 1)
     assert run.sections.fired == [0, 1, 2, 3, 4]
+    assert _zoom_records(first) == ([], [], [])  # Adam reads no go, counts no trial
+
+
+def test_zoom_runner_records_its_reads_trials_and_trial_marks():
+    """Eagerly: a ``go`` wait for each read (after every trial but a
+    search's 20th), one ``zoom-trials`` counter a call with the call's
+    trials, and the trial's two marks around each trial, recording no event
+    (no capture) and so no sample."""
+    runner, params, consts, state = bench.build_step(32, 32, device="cpu",
+                                                     optimizer="lbfgs-zoom")
+    run = runner.run
+    first = T.events()[-1].index if T.events() else -1
+    state, _ = runner(params, consts, state, 2)
+    trials = run.linesearch_steps.tolist()
+    waits, counters, samples = _zoom_records(first)
+    assert trials[0] > 1
+    assert len(waits) == sum(min(n, 19) for n in trials)
+    assert [(e.value, e.parent) for e in counters] == [(sum(trials), None)]
+    assert all(w.start_ns <= w.end_ns <= counters[0].start_ns for w in waits)
+    assert run.sections.fired == [0, 1] * sum(trials)
+    assert run.section_ms() is None and samples == []
+    runner(params, consts, state, 1)
+    assert len(_zoom_records(first)[1]) == 2
 
 
 def test_runner_samples_each_replay_once():
@@ -161,6 +208,38 @@ def test_runner_samples_each_replay_once():
         runner._sample()
     mine = [e for e in T.events() if e.kind == T.SECTIONS and e.start_ns == stamp]
     assert len(mine) == 1 and mine[0].value["backward"] == 3.0
+
+
+@pytest.mark.cuda
+def test_zoom_trial_is_timed_inside_its_replayed_graph():
+    """On the card: the trial graph holds the trial's two events, each
+    replay of it records them, and one trial's ms, sampled under the
+    profiler at the runner's next call, is a part of an iteration."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (runs on the card)")
+    runner, params, consts, state = bench.build_step(64, 64, device="cuda:0",
+                                                     optimizer="lbfgs-zoom")
+    run = runner.run
+    state, _ = runner(params, consts, state, 3)  # warm-up, capture and replay, replay
+    ms = run.section_ms()
+    assert set(ms) == {"trial"} and ms["trial"] > 0
+    first = T.events()[-1].index
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]):
+        t0 = T.now_ns()
+        state, _ = runner(params, consts, state, 2)
+        state, _ = runner(params, consts, state, 1)
+    waits, counters, samples = _zoom_records(first)
+    assert len([e for e in samples if e.start_ns > t0]) == 2  # each call's last replay
+    assert len(counters) == 2 and waits
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    state, _ = runner(params, consts, state, 5)
+    end.record()
+    end.synchronize()
+    per_eval = start.elapsed_time(end) / (5 + int(run.linesearch_steps.sum()))
+    assert 0.3 * per_eval < run.section_ms()["trial"] <= 1.5 * per_eval
 
 
 @pytest.mark.cuda

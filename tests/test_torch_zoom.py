@@ -12,6 +12,7 @@ kernel (``python tests/test_torch_zoom.py`` writes it anew).
 """
 
 import contextlib
+import functools
 import io
 import json
 import math
@@ -33,6 +34,7 @@ from style_transfer_tpu_torch import engine as TE
 from style_transfer_tpu_torch import step as S
 from style_transfer_tpu_torch import zoom_lbfgs as Z
 from style_transfer_tpu_torch.ops.cuda import zoom_ls as ZL
+from style_transfer_tpu_torch.utils import trace as TR
 from style_transfer_tpu_torch.utils.ema import ema_init
 
 torch.set_num_threads(2)
@@ -345,10 +347,11 @@ def test_lbfgs_direction_matches_optax_past_the_memory():
     xs = np.cumsum(0.3 * rng.randn(8, n), axis=0).astype(np.float32)
     grads = (xs @ a.T - b).astype(np.float32)
     opt = optax.scale_by_lbfgs(memory_size=3)
+    update = jax.jit(opt.update)  # one compile, not one per op and iteration
     jstate = opt.init(jnp.asarray(xs[0]))
     state = Z.zoom_lbfgs_init(torch.from_numpy(xs[0]), memory_size=3)
     for k in range(8):
-        ref, jstate = opt.update(jnp.asarray(grads[k]), jstate, jnp.asarray(xs[k]))
+        ref, jstate = update(jnp.asarray(grads[k]), jstate, jnp.asarray(xs[k]))
         d, state = Z.lbfgs_direction(state, torch.from_numpy(grads[k]),
                                      torch.from_numpy(xs[k]))
         assert state.count.dtype == torch.int32 and int(state.count) == k + 1
@@ -519,7 +522,7 @@ def _toy_searches():
             (g,) = torch.autograd.grad(value, xg)
             d, state = Z.lbfgs_direction(state, g, x)
 
-            def trial(stepsize, x=x, d=d):
+            def trial(stepsize, x=x, d=d, ft=ft):
                 xt = (x + float(stepsize) * d).requires_grad_(True)
                 v = ft(xt)
                 (gt,) = torch.autograd.grad(v, xt)
@@ -558,10 +561,12 @@ SCRIPTED = [
 ]
 
 
+@functools.lru_cache(maxsize=None)
 def _all_searches():
-    yield from _toy_searches()
-    for name, max_steps, make, v0, s0 in SCRIPTED:
-        yield name, max_steps, make, _f32(v0), _f32(s0)
+    """The toys' searches and the scripted ones, found once for the module
+    (each maker makes a fresh trial function)."""
+    return list(_toy_searches()) + [(name, max_steps, make, _f32(v0), _f32(s0))
+                                    for name, max_steps, make, v0, s0 in SCRIPTED]
 
 
 def test_ls_step_plain_matches_the_host_search_bit_for_bit():
@@ -654,7 +659,9 @@ def test_zoom_replay_counts_launches_per_evaluation():
     ``MAX_LINESEARCH_STEPS`` times) and the tail once, and moves each
     graph's recorded launches to the counters once per play: B1 4 times per
     loss evaluation (the head's and every trial's) and the line-search step
-    once per trial. Graphs stand in as recorders; the searches want 3, 1
+    once per trial. Each read of ``go`` is a ``go`` host wait of the
+    recorder (none after a search's last permitted trial), and the phases
+    count the trials. Graphs stand in as recorders; the searches want 3, 1
     and 25 trials."""
     class Graph:
         def __init__(self, name, then=None):
@@ -676,11 +683,15 @@ def test_zoom_replay_counts_launches_per_evaluation():
                       (Graph("tail"), (0, 0, 0, 0))]
     runner._loss = torch.tensor(2.5)
     losses, played, start = torch.zeros(3), [], S._launch_counts()
+    first = TR.events()[-1].index if TR.events() else -1
     try:
         for k in range(3):
             runner._replay(losses, k)
         assert played == [p for n in (3, 1, Z.MAX_LINESEARCH_STEPS)
                           for p in ["head"] + n * ["trial"] + ["tail"]]
+        reads = [e for e in TR.events() if e.index > first and e.kind == TR.HOST_WAIT]
+        assert [e.name for e in reads] == ["go"] * (3 + 1 + Z.MAX_LINESEARCH_STEPS - 1)
+        assert phases.trials == 3 + 1 + Z.MAX_LINESEARCH_STEPS
         evals = 3 + 3 + 1 + Z.MAX_LINESEARCH_STEPS
         got = tuple(a - b for a, b in zip(S._launch_counts(), start))
         assert got == (4 * evals, 0, 0, evals - 3)
