@@ -20,7 +20,11 @@ each of which exits non-zero on failure:
    its eager launch bit for bit at every shape (C = 64, 100, 128, 200, 256,
    300, 512: both regimes):
    - the coupled NS kernel (B1): tr(Y) to rtol 1e-4, Z to 1e-3 of max|Z|,
-     the trace autograd gradient to 1e-3 of its max;
+     the trace autograd gradient to 1e-3 of its max; then its grouped
+     launch at the main path's four groups at once (the one B1 launch a
+     loss evaluation) with the same checks, the C = 512 group bit for bit
+     against the per-group kernels, its graph replay bit for bit, and its
+     device time beside the four groups' launched one at a time;
    - the NS forward kernel (B2): Y to 1e-4 of max|Y|;
    - the Lyapunov backward kernel (B3), on the plain NS square root of the
      input with the loss's own gradient -(2w/C)·I and with a random one: Q
@@ -43,7 +47,8 @@ each of which exits non-zero on failure:
 4. the main path through the CLI: a 640x480 content and a 512x512 style PNG
    through ``style_transfer_tpu_torch.cli.main`` over the pyramid
    128 -> 512 (5 scales, 20 iterations each), with finite decreasing losses,
-   a 512x384 output, and exactly 4 groups x 100 iterations of B1 launches;
+   a 512x384 output, and exactly 100 B1 launches (one grouped launch a loss
+   evaluation for the four W2 groups);
 5. the reference-flavour path through the CLI: the same pyramid with
    ``--w2-grad lyap``, under Adam and under ``--optimizer lbfgs``, each with
    the checks of phase 4 and exactly 400 launches each of B2 and B3 and none
@@ -73,13 +78,13 @@ each of which exits non-zero on failure:
    one STIterate of the running canvas, then WIDone) and ``/image`` (a JPEG
    of the canvas with the ICC profile);
 9. ``--precision bf16``: the bf16 trunk's taps within 5e-2 of the FP32 ones
-   at 512x384, and the CLI pyramid in bf16 with phase 4's checks (400 B1
+   at 512x384, and the CLI pyramid in bf16 with phase 4's checks (100 B1
    launches), its output's PSNR against phase 4's FP32 output;
 10. the lbfgs-zoom path through the CLI (graph replays): phase 4's
     pyramid with ``--optimizer lbfgs-zoom``, phase 4's checks, B1 launched
-    4 times per loss evaluation (at least 400, equal to 4 x the iterations
-    and the line searches' evaluations, from the runners' records), the
-    line-search kernel once per trial, B2 and B3 never; launches / 400
+    once per loss evaluation (at least 100, equal to the iterations and the
+    line searches' evaluations, from the runners' records), the
+    line-search kernel once per trial, B2 and B3 never; launches / 100
     printed as the evaluations per iteration;
 11. fidelity on the card: the committed fingerprint fixture
     (``tests/fixtures/vgg19_random_he0_fingerprint.json``, made by the JAX
@@ -94,7 +99,7 @@ each of which exits non-zero on failure:
     and each rank's kernel launches, peak memory and time in the halo
     exchanges and all-reduces come from the ``ranks`` entry of the trace:
     - phase 4's pyramid on 2 ranks (2x1): per-scale losses against phase
-      4's to rtol 1e-3, exactly 400 B1 launches on each rank, the gathered
+      4's to rtol 1e-3, exactly 100 B1 launches on each rank, the gathered
       output's PSNR against phase 4's printed;
     - one 1448x1086 scale (``--align 1``, phase 7's canvas), 30 iterations
       on 2 ranks: ms/iter beside phase 7's plain run, per-rank peak memory,
@@ -111,18 +116,18 @@ each of which exits non-zero on failure:
       exit 0 within 60 s with the output and the trace (with ``ranks``),
       stopped after a chunk before the end; ``--resume`` on 2 ranks to the
       end, its losses against the first leg's to rtol 1e-3 and B1 launched
-      4 times per resumed iteration on each rank;
+      once per resumed iteration on each rank;
 13. BASELINE.json config #5 at print size, ``random_params(0)``, FP32: the
     CLI pyramid 128 -> 2896x2172 (ten scales, 10 iterations each, chunks
     of 5) with ``--web`` (phase 8's client reads at least one event of the
     2896 scale, then the JPEG) and ``-o out.tif``: finite losses, a
     2896x2172 16-bit TIFF with the sRGB profile (the file equals the
-    port's own encoding of its pixels), 400 B1 launches; ms/iter of the
+    port's own encoding of its pixels), 100 B1 launches; ms/iter of the
     2048 and 2896 scales over their last 5 iterations, peak memory per
     scale, the 2896 scale's entry time. Then the 2896 scale alone (10
     iterations): FP32, bf16 (``--precision bf16``) and on 2 ranks sharing
     the card (``--align 1``, losses against the FP32 one-device run to
-    rtol 1e-3, 40 B1 launches on each rank), ms/iter and peak memory of
+    rtol 1e-3, 10 B1 launches on each rank), ms/iter and peak memory of
     each (per rank, with halo and all-reduce ms/iter, for the 2 ranks);
 14. BASELINE.json configs #3 and #4: card against CPU (phase 3's harness,
     128 px, 10 iterations, rtol 1e-3) for average pooling, L2 pooling with
@@ -133,7 +138,7 @@ each of which exits non-zero on failure:
     ``--style-loss gram --init style_stats --style-scale-fac 0.7 --align
     8`` (the aligned canvases, and no NS launch: Gram takes no square
     root), ``--style-size 256``, and the three styles with
-    ``--style-weights 2 -1 1 --content-weight 0.15 --tv-weight 20``; 400
+    ``--style-weights 2 -1 1 --content-weight 0.15 --tv-weight 20``; 100
     B1 launches on each W2 leg. The weighted blend is one W2 target (the
     blended moments), so its loss is still a distance and falls as phase
     4's does;
@@ -141,7 +146,7 @@ each of which exits non-zero on failure:
     ``run`` of the pyramid 128 -> 512 at the engine's iteration counts
     (1000 + 4 x 500), with each scale's iterations, its phases plus
     ``untimed`` equal to its wall within 0.05 s, 0 <= ``overhead_wall`` <
-    the wall, and 4 B1 launches per iteration; ``style_transfer_tpu_torch.
+    the wall, and 1 B1 launch per iteration; ``style_transfer_tpu_torch.
     bench`` at 512x512 for (trace, f32), (trace, bf16) and (lyap, f32),
     each printing its JSON line; ``tools/profile_step_torch.py``'s
     ``profile`` at 512x384, its buckets summing to its device kernel time
@@ -161,7 +166,7 @@ each of which exits non-zero on failure:
     evaluations of every iteration bit-identical; ms/iter of each, the graph runner's busy share
     (``profile_step_torch.profile_runner``), its capture and instantiate
     time, peak memory of each and kernel launches per iteration (equal; for
-    lbfgs-zoom B1 4 x the evaluations and the line-search kernel once per
+    lbfgs-zoom B1 once per evaluation and the line-search kernel once per
     trial in each run); for (lbfgs-zoom, trace) also the ms/iter of a graph
     runner whose trial graph holds the plain line-search step in place of
     its kernel;
@@ -173,13 +178,13 @@ each of which exits non-zero on failure:
     each; (b) phase 13's one-scale 2896x2172 legs, FP32 and bf16, with
     ``--remat on``: peak memory below phase 13's legs (which ``--remat
     auto`` ran without remat, as their traces must say), losses within rtol
-    1e-3 of theirs, 40 B1 launches each, ms/iter of each; (c)
+    1e-3 of theirs, 10 B1 launches each, ms/iter of each; (c)
     ``tools/large_conv_probe_torch.py`` at 8192x6144 (conv1_2's
     convolution, ReLU and max pooling on a 64-channel canvas past 2^31
     elements, against the same ops on its halves) must pass; then at
     8192x6144 (50.3 Mpx; relu1_1 about 3.2e9 elements) ``--remat off`` (a
     subprocess) must end in CUDA's out-of-memory error, and ``--remat auto``
-    must choose remat and run 3 iterations to finite losses, 12 B1
+    must choose remat and run 3 iterations to finite losses, 3 B1
     launches: its peak memory, ms/iter,
     the predicted peak without remat, and whether PyTorch warned that cuDNN
     refused a convolution. The phase's seconds are printed.
@@ -531,6 +536,8 @@ def _kernel_phase():
         if not all(same.values()):
             raise AssertionError(f"{name}: a graph replay differs from its eager launch")
 
+    stats["ns_sqrtm_yz"]["grouped_ms"] = _grouped_phase(
+        [(name, a) for name, a, weights in cases if weights is not None])
     for kname, st in stats.items():
         print(f"{kname} per step (the four groups): kernel {st['ms']:.4f} ms, plain "
               f"{st['plain_ms']:.4f} ms, bound {st['bound_ms']:.4f} ms "
@@ -539,6 +546,61 @@ def _kernel_phase():
         if not st["bound_ms"] <= st["ms"]:
             raise AssertionError(f"{kname}: per-step time below its bound")
     return stats
+
+
+def _device_ms(fn, reps=10):
+    """Device milliseconds per call of ``fn``'s NS kernels (``stt_nsk_``),
+    from ``torch.profiler`` after a warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "stt_nsk_" in e.name) / reps / 1e3
+
+
+def _grouped_phase(cases):
+    """B1's grouped launch at the main path's four groups (one launch a
+    loss evaluation): each group against the plain chain at phase 2's
+    tolerances, the C > 256 group bit for bit against the per-group kernels
+    (``ns_sqrtm_yz_serial``), a graph replay bit for bit against the eager
+    launch, and its device time beside the four groups' launched one at a
+    time and by the per-group kernels. Returns the grouped launch's ms."""
+    import torch
+
+    from style_transfer_tpu_torch.ops import sqrtm as S
+    from style_transfer_tpu_torch.ops.cuda import ns_sqrtm as K
+
+    mats = [a for _, a in cases]
+    out = K.ns_sqrtm_yz_groups(mats, ITERS)
+    for (name, a), (y, z) in zip(cases, out):
+        py, pz = K.ns_sqrtm_yz_plain(a, ITERS)
+        tr, ptr = S._batch_trace(y), S._batch_trace(py)
+        _check(name, ((tr - ptr).abs() / ptr.abs()).max().item(), KERNEL_RTOL_TRACE,
+               "grouped ns_sqrtm_yz tr(Y) rel err")
+        _check(name, _rel_err(z, pz), KERNEL_TOL_Z, "grouped ns_sqrtm_yz Z err of max|Z|")
+        if a.shape[-1] > 256:
+            sy, sz = K.ns_sqrtm_yz_serial(a, ITERS)
+            if not (torch.equal(y, sy) and torch.equal(z, sz)):
+                raise AssertionError(f"{name}: the grouped launch differs from the "
+                                     "per-group kernels")
+    if not _graph_replay_equal(lambda: [t for yz in K.ns_sqrtm_yz_groups(mats, ITERS)
+                                        for t in yz]):
+        raise AssertionError("the grouped launch's graph replay differs from its eager launch")
+    grouped = _device_ms(lambda: K.ns_sqrtm_yz_groups(mats, ITERS))
+    alone = [_device_ms(lambda a=a: K.ns_sqrtm_yz(a, ITERS)) for a in mats]
+    serial = [_device_ms(lambda a=a: K.ns_sqrtm_yz_serial(a, ITERS)) for a in mats]
+    names = [name for name, _ in cases]
+    print(f"grouped B1 launch at {names}: device {grouped:.4f} ms a loss evaluation; "
+          f"each group launched alone {[round(v, 4) for v in alone]} (sum "
+          f"{sum(alone):.4f}); the per-group kernels {[round(v, 4) for v in serial]} (sum "
+          f"{sum(serial):.4f}); bit for bit at C > 256, graph replay bit for bit")
+    return grouped
 
 
 def _ls_cases(dev):
@@ -946,8 +1008,8 @@ def _cli_phase(tmp, content_path, style_path, label, flags, expect, sizes=PYRAMI
     ``expect``."""
     its, out, launches = _run_cli(tmp, content_path, style_path, label, flags)
     _check_pyramid(its, out, sizes)
-    print(f"  kernel launches over the run: {launches} (expected {expect}: 4 groups "
-          "x 100 iterations of each kernel on the path)")
+    print(f"  kernel launches over the run: {launches} (expected {expect}: B1 once an "
+          "iteration for the four groups, B2 and B3 once a group and iteration)")
     if launches != expect:
         raise AssertionError(f"launches {launches}, expected {expect}")
     return launches
@@ -984,8 +1046,8 @@ def _check_pyramid(its, out, sizes=PYRAMID, iters=20):
 def _zoom_phase(tmp, content_path, style_path):
     """Phase 4's pyramid with ``--optimizer lbfgs-zoom`` (graph replays):
     every loss evaluation (the runner's own and each line-search trial)
-    launches B1 once per channel group, so B1 launches 4 x (100 + the
-    trials) times, the line-search step kernel once per trial, and B2/B3
+    launches B1 once for the four channel groups, so B1 launches 100 + the
+    trials times, the line-search step kernel once per trial, and B2/B3
     never; each scale's capture of its three graphs (the engine's
     ``  capture@S`` rows). Returns the launches, the line-search step's
     included."""
@@ -1002,13 +1064,13 @@ def _zoom_phase(tmp, content_path, style_path):
     _check_pyramid(its, out)
     b1 = launches["ns_sqrtm_yz"]
     print(f"  kernel launches over the run: {launches}, line-search step {ls}; B1 "
-          f"launches / 400 = {b1 / 400:.3f} evaluations per iteration; line-search "
+          f"launches / 100 = {b1 / 100:.3f} evaluations per iteration; line-search "
           f"evaluations {sum(counts)} over {len(counts)} iterations (max {max(counts)} "
           "in one)")
-    if b1 % 4 or b1 < 400 or launches["ns_sqrtm"] or launches["lyap_bwd"]:
+    if b1 < 100 or launches["ns_sqrtm"] or launches["lyap_bwd"]:
         raise AssertionError(f"zoom path launches {launches}")
-    if len(counts) != 100 or b1 != 4 * (len(counts) + sum(counts)):
-        raise AssertionError(f"B1 launches {b1} != 4 x the {len(counts) + sum(counts)} "
+    if len(counts) != 100 or b1 != len(counts) + sum(counts):
+        raise AssertionError(f"B1 launches {b1} != the {len(counts) + sum(counts)} "
                              "loss evaluations")
     if ls != sum(counts):
         raise AssertionError(f"line-search step launches {ls} != the {sum(counts)} trials")
@@ -1133,7 +1195,7 @@ def _resume_phase(tmp, content_path, style_path):
         torch.backends.cudnn.deterministic = True
         try:
             for label, flags, expect in (
-                    ("adam-trace", [], {"ns_sqrtm_yz": 200, "ns_sqrtm": 0, "lyap_bwd": 0}),
+                    ("adam-trace", [], {"ns_sqrtm_yz": 50, "ns_sqrtm": 0, "lyap_bwd": 0}),
                     ("lbfgs-lyap", ["--optimizer", "lbfgs", "--w2-grad", "lyap"],
                      {"ns_sqrtm_yz": 0, "ns_sqrtm": 200, "lyap_bwd": 200})):
                 _resume_leg(tmp, content_path, style_path, label, flags, expect, writes)
@@ -1253,7 +1315,7 @@ def _web_phase(tmp, content_path, style_path):
           f"{events[-1]['_type'] if events else None}, image {seen.get('image')}, "
           f"client errors {seen['errors']}, launches {launches}")
     _check_web(seen, made, PYRAMID, PYRAMID[-1])
-    if launches["ns_sqrtm_yz"] != 400:
+    if launches["ns_sqrtm_yz"] != 100:
         raise AssertionError(f"web: launches {launches}")
     ref = _by_scale(json.loads((tmp / "trace_adam-trace.json").read_text())["iterates"])
     for (w, h), s in _by_scale(its).items():
@@ -1292,7 +1354,7 @@ def _bf16_phase(tmp, content_path, style_path):
     if not max(errs.values()) <= BF16_TAP_TOL:
         raise AssertionError("bf16 taps differ from FP32 past the limit")
     _cli_phase(tmp, content_path, style_path, "adam-trace-bf16", ["--precision", "bf16"],
-               {"ns_sqrtm_yz": 400, "ns_sqrtm": 0, "lyap_bwd": 0})
+               {"ns_sqrtm_yz": 100, "ns_sqrtm": 0, "lyap_bwd": 0})
     a = _read_png(tmp / "out_adam-trace-bf16.png").astype(np.float64)
     b = _read_png(tmp / "out_adam-trace.png").astype(np.float64)
     mse = np.mean((a - b) ** 2) / 255.0 ** 2
@@ -1541,7 +1603,7 @@ def _sharded_stop_leg(tmp, content_path, style_path):
     ref = json.loads((tmp / "trace_sharded-adam-trace.json").read_text())["iterates"]
     ref = ref[len(ref) - len(resumed):]
     _check_close("the resumed 2-rank pyramid against phase 12's first leg", resumed, ref)
-    expect = {"ns_sqrtm_yz": 4 * len(resumed), "ns_sqrtm": 0, "lyap_bwd": 0}
+    expect = {"ns_sqrtm_yz": len(resumed), "ns_sqrtm": 0, "lyap_bwd": 0}
     if DEVICE != "cpu" and any(r["kernel_launches"] != expect for r in rank_list):
         raise AssertionError(f"stop leg: resumed rank launches differ from {expect}")
     print(f"  resumed from {resumed[0]['w']}x{resumed[0]['h']} iteration "
@@ -1608,7 +1670,7 @@ def _print_phase(tmp, content_path, style_path):
           f"{prev[0]['h']} to the first chunk's start): {entry:.3f} s")
     if not at_print:
         raise AssertionError(f"print pyramid: the client saw no event of {w}x{h}")
-    if DEVICE != "cpu" and launches != {"ns_sqrtm_yz": 400, "ns_sqrtm": 0, "lyap_bwd": 0}:
+    if DEVICE != "cpu" and launches != {"ns_sqrtm_yz": 100, "ns_sqrtm": 0, "lyap_bwd": 0}:
         raise AssertionError(f"print pyramid: launches {launches}")
 
     one = ["--min-scale", str(PRINT_SCALE), "--end-scale", str(PRINT_SCALE), "-ii", "10",
@@ -1618,12 +1680,12 @@ def _print_phase(tmp, content_path, style_path):
         legs[label], _, launches = _run_cli(tmp, content_path, style_path, label,
                                             one + flags)
         _check_pyramid(legs[label], None, [(w, h)], iters=10)
-        if DEVICE != "cpu" and launches["ns_sqrtm_yz"] != 40:
+        if DEVICE != "cpu" and launches["ns_sqrtm_yz"] != 10:
             raise AssertionError(f"{label}: launches {launches}")
     sharded, _, ranks = _sharded_cli(tmp, content_path, style_path, "sharded-print", one, 2)
     _check_close(f"{w}x{h} on 2 ranks against one device", sharded, legs["print-f32"])
     for r in ranks:
-        if DEVICE != "cpu" and r["kernel_launches"] != {"ns_sqrtm_yz": 40, "ns_sqrtm": 0,
+        if DEVICE != "cpu" and r["kernel_launches"] != {"ns_sqrtm_yz": 10, "ns_sqrtm": 0,
                                                         "lyap_bwd": 0}:
             raise AssertionError(f"sharded print: rank launches {r['kernel_launches']}")
     def peak(scale_its):
@@ -1688,7 +1750,7 @@ def _configs_phase(tmp, content_path, style_path):
         if len(card) != 10 or not (rel <= CPU_RTOL).all():
             raise AssertionError(f"card and cpu losses disagree [{label}]")
 
-    w2 = {"ns_sqrtm_yz": 400, "ns_sqrtm": 0, "lyap_bwd": 0}
+    w2 = {"ns_sqrtm_yz": 100, "ns_sqrtm": 0, "lyap_bwd": 0}
     aligned = [align_size(size, 8) for size in PYRAMID]
     for label, flags, expect, sizes in (
             ("average", ["--pooling", "average"], w2, PYRAMID),
@@ -1725,7 +1787,7 @@ def _tools_phase():
         raise AssertionError("pyramid bench: phases + untimed differ from the wall")
     if not 0 <= rec["overhead_wall"] < rec["value"]:
         raise AssertionError(f"pyramid bench: overhead_wall {rec['overhead_wall']}")
-    if DEVICE != "cpu" and launches != {"ns_sqrtm_yz": 4 * sum(iters), "ns_sqrtm": 0,
+    if DEVICE != "cpu" and launches != {"ns_sqrtm_yz": sum(iters), "ns_sqrtm": 0,
                                         "lyap_bwd": 0}:
         raise AssertionError(f"pyramid bench: launches {launches}")
 
@@ -1809,14 +1871,14 @@ def _run_timed(run, params, consts, state):
 
 
 def _check_zoom_launches(label, launches, steps):
-    """Over the timed chunk (iterations 6-20): the NS kernels of the path (B1,
-    or B2 and B3) launched 4 times per loss evaluation, the others never,
-    and the line-search step once per trial. Returns the evaluations per
-    iteration."""
+    """Over the timed chunk (iterations 6-20): the NS kernels of the path (B1
+    once per loss evaluation, or B2 and B3 once per group and evaluation)
+    launched, the others never, and the line-search step once per trial.
+    Returns the evaluations per iteration."""
     trials = sum(steps[5:])
     evals = GRAPH_ITERS - 5 + trials
     ns = sorted(launches[k] for k in KERNELS)
-    if ns not in ([0, 0, 4 * evals], [0, 4 * evals, 4 * evals]) or (
+    if ns not in ([0, 0, evals], [0, 4 * evals, 4 * evals]) or (
             launches["zoom_ls_step"] != trials):
         raise AssertionError(f"{label}: launches {launches} for {evals} loss evaluations "
                              f"and {trials} trials")
@@ -1967,7 +2029,7 @@ def _remat_same_numbers():
     def run(h, w, remat):
         runner, params, consts, state0 = build_step(h, w, device=device, remat=remat)
         state, losses, ms, peak, launches, _ = _run_timed(runner, params, consts, state0)
-        if DEVICE != "cpu" and launches["ns_sqrtm_yz"] != 4 * (GRAPH_ITERS - 5):
+        if DEVICE != "cpu" and launches["ns_sqrtm_yz"] != GRAPH_ITERS - 5:
             raise AssertionError(f"remat={remat} at {w}x{h}: launches {launches}")
         if not np.isfinite(losses).all():
             raise AssertionError(f"remat={remat} at {w}x{h}: non-finite loss")
@@ -2015,7 +2077,7 @@ def _remat_print_legs(tmp, content_path, style_path, print_legs):
         _check_pyramid(its, None, [(w, h)], iters=10)
         if [r["remat"] for r in _trace_remat(tmp, f"{label}-remat")] != [True]:
             raise AssertionError(f"{label}: --remat on did not rematerialise")
-        if DEVICE != "cpu" and launches["ns_sqrtm_yz"] != 40:
+        if DEVICE != "cpu" and launches["ns_sqrtm_yz"] != 10:
             raise AssertionError(f"{label} --remat on: launches {launches}")
         losses = np.array([i["loss"] for i in its])
         ref_losses = np.array([i["loss"] for i in ref])
@@ -2104,7 +2166,7 @@ def _remat_big_canvas(tmp, content_path, style_path):
         raise AssertionError(f"--remat auto did not rematerialise at {cw}x{ch}")
     if len(its) != REMAT_BIG_ITERS or not np.isfinite(losses).all():
         raise AssertionError(f"--remat auto at {cw}x{ch}: iterates {losses}")
-    if DEVICE != "cpu" and launches["ns_sqrtm_yz"] != 4 * REMAT_BIG_ITERS:
+    if DEVICE != "cpu" and launches["ns_sqrtm_yz"] != REMAT_BIG_ITERS:
         raise AssertionError(f"--remat auto at {cw}x{ch}: launches {launches}")
 
 
@@ -2147,7 +2209,7 @@ def main():
             _card_vs_cpu_phase(content_path, style_path)
             phase = "main path through the CLI"
             main_path = _cli_phase(tmp, content_path, style_path, "adam-trace", [],
-                                   {"ns_sqrtm_yz": 400, "ns_sqrtm": 0, "lyap_bwd": 0})
+                                   {"ns_sqrtm_yz": 100, "ns_sqrtm": 0, "lyap_bwd": 0})
             phase = "reference-flavour path through the CLI"
             lyap_path = {"ns_sqrtm_yz": 0, "ns_sqrtm": 400, "lyap_bwd": 400}
             lyap_run = _cli_phase(tmp, content_path, style_path, "adam-lyap",
@@ -2200,6 +2262,7 @@ def main():
         "plain_ms": stats[name]["plain_ms"],
         "bound_ms": stats[name]["bound_ms"],
         "fp32_fma_bound_ms": stats[name]["fp32_fma_bound_ms"],
+        "grouped_ms": stats[name].get("grouped_ms"),  # B1: the four groups in one launch
         "bound_by": "operations",
         "library_ms": None,  # no single PyTorch call computes these functions
     } for name, (_, _, replaces) in KERNELS.items()] + [{

@@ -10,14 +10,19 @@
 
 namespace stt {
 
-// Regime boundary: a call with C <= kClusterMaxC runs as one launch, one
-// thread-block cluster per matrix; a larger C runs as a chain of batched
-// tiled GEMM launches.
+// Regime boundary: a call of B2 or B3 (or of B1's per-group kernels) with
+// C <= kClusterMaxC runs as one launch, one thread-block cluster per
+// matrix; a larger C runs as a chain of batched tiled GEMM launches. B1's
+// grouped launch takes the GEMM regime's tiles above it.
 constexpr int kClusterMaxC = 256;
 
 // Returned by the C entry points when the cluster cannot be scheduled on
 // this device (cudaOccupancyMaxActiveClusters gives 0).
 constexpr int kErrClusterUnschedulable = 10000;
+
+// Returned by the grouped B1 entry point when its plan asks for more blocks
+// than the device holds resident at once.
+constexpr int kErrGroupsNotResident = 10001;
 
 // Slots of the `norm` scratch per matrix: the norm, then the per-block
 // partial sums of squares of the GEMM regime's prologue.

@@ -61,9 +61,9 @@
 // the Y_1 step divides its left operand by n as it reads it. A GEMM tile
 // stages k-slices of both operands through shared memory with cp.async,
 // the next slices' copies in flight during the current MMAs; a warp owns a
-// 32x32 sub-tile. Two executors run a plan, split at kClusterMaxC = 256
-// (ns_common.cuh); a ragged C takes the one its size selects, with masked
-// edges:
+// 32x32 sub-tile. Three executors run a plan: B2 and B3 one of two
+// regimes split at kClusterMaxC = 256 (ns_common.cuh), B1 the grouped
+// launch; a ragged C takes the regime its size selects, with masked edges:
 //   - GEMM regime, C > 256: one launch per step on the caller's stream. The
 //     norm is spread over kNormBlocks blocks per matrix (float4 loads, one
 //     partial each, summed in a fixed order by the start kernel). A block
@@ -85,6 +85,23 @@
 //     buffers, L2-resident at these sizes (1 MB at C=256), not in
 //     distributed shared memory: a version that held it there and read the
 //     peers' rows through map_shared_rank was slower on the card.
+//   - Grouped launch, B1 (stt_ns_sqrtm_yz_groups_f32): the chains of every
+//     group a loss evaluation needs (the W2 loss's channel groups, C = 64,
+//     128, 256 and 2 x 512 by default) in one persistent launch, each
+//     block working for one group, each group's blocks meeting at a
+//     barrier in global memory between steps (the arrival a release at GPU
+//     scope, the wait an acquire). One after another, the per-group
+//     launches held 4-16 of the 132 SMs for half of B1's time; side by
+//     side the small groups run under the C = 512 chain. A cluster's size
+//     is fixed for the whole grid and the groups want 4 to 256 blocks, so
+//     no group uses clusters. Every block of a group must be resident
+//     before any of them waits: the host plans the blocks from the
+//     occupancy API's count (at most three 128-thread blocks an SM), the
+//     launch refuses a plan past it, and a wait that outlasts 10 s traps
+//     rather than hang the device. The C = 512 group keeps the GEMM
+//     regime's 64x64 tiles and arithmetic (bit for bit); the C <= 256
+//     groups take 32x32 tiles of one warpgroup. Details at
+//     stt_nsk_ns_groups.
 
 #include <cooperative_groups.h>
 
@@ -103,25 +120,28 @@ constexpr int kStages = 3;  // cp.async stages
 constexpr int kNormThreads = 256;
 constexpr int kStartBlocks = 64;  // blocks per matrix of the start kernels
 
-constexpr int cmax(int a, int b) { return a > b ? a : b; }
+__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
 
-// One output tile of kTile x kTile computed by kGroups warpgroups: each
-// warpgroup's 4 warps own kTile/2 x kTile/2 each, and the warpgroups take
-// equal kBK-deep shares of every stage's k.
-template <int kTile_, int kGroups_>
+// One output tile of kTile rows x kTileN columns computed by kGroups
+// warpgroups: each warpgroup's 4 warps own kTile/2 x kTileN/2 each, and the
+// warpgroups take equal kBK-deep shares of every stage's k. An output
+// element's sum is the same whatever the tile's shape.
+template <int kTile_, int kGroups_, int kTileN_ = kTile_>
 struct Cfg {
-  static constexpr int kTile = kTile_, kGroups = kGroups_;
+  static constexpr int kTile = kTile_, kTileN = kTileN_, kGroups = kGroups_;
   static constexpr int kThreads = 128 * kGroups;
   static constexpr int kDepth = kBK * kGroups;  // k-depth of a stage
   static constexpr int kMT = kTile / 2 / 16;    // 16-row mma tiles per warp
-  static constexpr int kNT = kTile / 2 / 8;     // 8-column mma tiles per warp
+  static constexpr int kNT = kTileN / 2 / 8;    // 8-column mma tiles per warp
   static constexpr int kLdA = kDepth + 4;  // row-major left tile [m][k]: conflict-free
-  static constexpr int kLdK = kTile + 8;   // k-major tiles [k][m or n]: conflict-free
+  static constexpr int kLdK = kTile + 8;   // k-major left tile [k][m]: conflict-free
+  static constexpr int kLdB = kTileN + 8;  // k-major right tile [k][n]: conflict-free
   static constexpr int kA = cmax(kTile * kLdA, kDepth * kLdK);  // floats of a left tile
-  static constexpr int kStage = kA + kDepth * kLdK;             // floats of a stage
-  static constexpr int kLdR = kTile + 8;  // a tile of sums exchanged through shared memory
+  static constexpr int kStage = kA + kDepth * kLdB;             // floats of a stage
+  static constexpr int kLdR = kTileN + 8;  // a tile of sums exchanged through shared memory
   static constexpr int kSmemBytes = 4 * cmax(kStages * kStage, kTile * kLdR);
-  static_assert(kTile * kDepth % (4 * kThreads) == 0, "whole float4 copies per thread");
+  static_assert(kTile * kDepth % (4 * kThreads) == 0 && kTileN * kDepth % (4 * kThreads) == 0,
+                "whole float4 copies per thread");
 };
 
 // GEMM regime (C > kClusterMaxC): 64x64 tiles of one warpgroup, so a step
@@ -163,15 +183,15 @@ struct Launch {
   int n;
 };
 
-template <int kTile>
-using Acc = float[kTile / 32][kTile / 16][4];  // [m tile][n tile][element] of a warp
+template <class Cf>
+using Acc = float[Cf::kMT][Cf::kNT][4];  // [m tile][n tile][element] of a warp
 
-template <int kTile>
-__device__ __forceinline__ void zero(Acc<kTile>& acc) {
+template <class Cf>
+__device__ __forceinline__ void zero(Acc<Cf>& acc) {
 #pragma unroll
-  for (int mi = 0; mi < kTile / 32; ++mi)
+  for (int mi = 0; mi < Cf::kMT; ++mi)
 #pragma unroll
-    for (int ni = 0; ni < kTile / 16; ++ni)
+    for (int ni = 0; ni < Cf::kNT; ++ni)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
 }
@@ -203,61 +223,67 @@ __device__ __forceinline__ void cp_wait() {
 }
 
 // Starts the copies of the stage at k0 (kDepth deep) of op(A) (kTile rows)
-// and B (kTile columns); out-of-range elements are zero-filled. With
+// and B (kTileN columns); out-of-range elements are zero-filled. With
 // C % 4 == 0 every row is 16-byte aligned and copied as float4.
 template <class Cf, bool kTransA>
 __device__ __forceinline__ void load_tiles(float* as, float* bs, const float* A,
                                            const float* B, int n, int row0, int col0,
                                            int k0, bool vec) {
-  constexpr int kTile = Cf::kTile, kLdK = Cf::kLdK, kLdA = Cf::kLdA, kDepth = Cf::kDepth;
-  constexpr int kThreads = Cf::kThreads;
-  constexpr int kVec = kTile * kDepth / 4 / kThreads;  // float4 per thread and operand
-  constexpr int kQ = kDepth / 4;                       // float4 per left row
+  constexpr int kTile = Cf::kTile, kTileN = Cf::kTileN, kLdK = Cf::kLdK, kLdB = Cf::kLdB;
+  constexpr int kLdA = Cf::kLdA, kDepth = Cf::kDepth, kThreads = Cf::kThreads;
+  constexpr int kVec = kTile * kDepth / 4 / kThreads;    // float4 per thread of A
+  constexpr int kVecB = kTileN * kDepth / 4 / kThreads;  // ... and of B
+  constexpr int kQ = kDepth / 4;                         // float4 per left row
   const int tid = threadIdx.x;
   if (vec) {
 #pragma unroll
-    for (int i = 0; i < kVec; ++i) {
+    for (int i = 0; i < cmax(kVec, kVecB); ++i) {
       const int q = tid + i * kThreads;
-      if (kTransA) {
+      if (i < kVec && kTransA) {
         const int kk = q / (kTile / 4), m = (q % (kTile / 4)) * 4, k = k0 + kk, r = row0 + m;
         const bool ok = k < n && r < n;
         cp_async16(as + kk * kLdK + m, ok ? A + static_cast<size_t>(k) * n + r : A, ok);
-      } else {
+      } else if (i < kVec) {
         const int m = q / kQ, kq = (q % kQ) * 4, r = row0 + m, k = k0 + kq;
         const bool ok = r < n && k < n;
         cp_async16(as + m * kLdA + kq, ok ? A + static_cast<size_t>(r) * n + k : A, ok);
       }
-      const int kk = q / (kTile / 4), cq = (q % (kTile / 4)) * 4, k = k0 + kk, c = col0 + cq;
-      const bool ok = k < n && c < n;
-      cp_async16(bs + kk * kLdK + cq, ok ? B + static_cast<size_t>(k) * n + c : B, ok);
+      if (i < kVecB) {
+        const int kk = q / (kTileN / 4), cq = (q % (kTileN / 4)) * 4, k = k0 + kk;
+        const int c = col0 + cq;
+        const bool ok = k < n && c < n;
+        cp_async16(bs + kk * kLdB + cq, ok ? B + static_cast<size_t>(k) * n + c : B, ok);
+      }
     }
   } else {
 #pragma unroll
-    for (int i = 0; i < 4 * kVec; ++i) {
+    for (int i = 0; i < 4 * cmax(kVec, kVecB); ++i) {
       const int q = tid + i * kThreads;
-      if (kTransA) {
+      if (i < 4 * kVec && kTransA) {
         const int kk = q / kTile, m = q % kTile, k = k0 + kk, r = row0 + m;
         const bool ok = k < n && r < n;
         cp_async4(as + kk * kLdK + m, ok ? A + static_cast<size_t>(k) * n + r : A, ok);
-      } else {
+      } else if (i < 4 * kVec) {
         const int m = q / kDepth, kq = q % kDepth, r = row0 + m, k = k0 + kq;
         const bool ok = r < n && k < n;
         cp_async4(as + m * kLdA + kq, ok ? A + static_cast<size_t>(r) * n + k : A, ok);
       }
-      const int kk = q / kTile, cq = q % kTile, k = k0 + kk, c = col0 + cq;
-      const bool ok = k < n && c < n;
-      cp_async4(bs + kk * kLdK + cq, ok ? B + static_cast<size_t>(k) * n + c : B, ok);
+      if (i < 4 * kVecB) {
+        const int kk = q / kTileN, cq = q % kTileN, k = k0 + kk, c = col0 + cq;
+        const bool ok = k < n && c < n;
+        cp_async4(bs + kk * kLdB + cq, ok ? B + static_cast<size_t>(k) * n + c : B, ok);
+      }
     }
   }
 }
 
 // The warp's sub-tile origin (wm, wn) and its warpgroup.
-template <int kTile>
+template <class Cf>
 __device__ __forceinline__ void warp_place(int& wm, int& wn, int& group) {
   const int warp = threadIdx.x >> 5;
   group = warp >> 2;
-  wm = ((warp >> 1) & 1) * (kTile / 2);
-  wn = (warp & 1) * (kTile / 2);
+  wm = ((warp >> 1) & 1) * (Cf::kTile / 2);
+  wn = (warp & 1) * (Cf::kTileN / 2);
 }
 
 // acc += op(A) B over the warpgroup's kBK-deep share of one stage, the
@@ -265,15 +291,15 @@ __device__ __forceinline__ void warp_place(int& wm, int& wn, int& group) {
 // is then added to acc with an IEEE FP32 add (see the note above on the
 // tensor core's accumulation).
 template <class Cf, bool kTransA, bool kScaleA>
-__device__ __forceinline__ void mma_stage(Acc<Cf::kTile>& acc, const float* as,
+__device__ __forceinline__ void mma_stage(Acc<Cf>& acc, const float* as,
                                           const float* bs, float nrm) {
-  constexpr int kTile = Cf::kTile, kMT = Cf::kMT, kNT = Cf::kNT, kLdK = Cf::kLdK;
+  constexpr int kMT = Cf::kMT, kNT = Cf::kNT, kLdK = Cf::kLdK, kLdB = Cf::kLdB;
   constexpr int kLdA = Cf::kLdA;
   const int lane = threadIdx.x & 31;
   int wm, wn, group;
-  warp_place<kTile>(wm, wn, group);
-  Acc<kTile> part;
-  zero<kTile>(part);
+  warp_place<Cf>(wm, wn, group);
+  Acc<Cf> part;
+  zero<Cf>(part);
 #pragma unroll
   for (int s8 = 0; s8 < kBK; s8 += 8) {
     const int ks = group * kBK + s8;
@@ -291,7 +317,7 @@ __device__ __forceinline__ void mma_stage(Acc<Cf::kTile>& acc, const float* as,
 #pragma unroll
     for (int ni = 0; ni < kNT; ++ni) {
       const FragB fb = load_frag_b(
-          [&](int k, int c) { return bs[(ks + k) * kLdK + wn + ni * 8 + c]; }, lane);
+          [&](int k, int c) { return bs[(ks + k) * kLdB + wn + ni * 8 + c]; }, lane);
 #pragma unroll
       for (int mi = 0; mi < kMT; ++mi) mma_3xtf32(part[mi][ni], fa[mi], fb);
     }
@@ -308,12 +334,12 @@ __device__ __forceinline__ void mma_stage(Acc<Cf::kTile>& acc, const float* as,
 // each warpgroup sums its shares of the stages in increasing k, then
 // warpgroup 0 adds warpgroup 1's sum to its own (a fixed order).
 template <class Cf, bool kTransA, bool kScaleA>
-__device__ __forceinline__ void gemm_term(Acc<Cf::kTile>& acc, const float* A, const float* B,
+__device__ __forceinline__ void gemm_term(Acc<Cf>& acc, const float* A, const float* B,
                                           int n, int row0, int col0, float nrm, float* smem) {
-  constexpr int kTile = Cf::kTile, kDepth = Cf::kDepth;
+  constexpr int kDepth = Cf::kDepth;
   auto sa = [&](int s) { return smem + s * Cf::kStage; };
   auto sb = [&](int s) { return smem + s * Cf::kStage + Cf::kA; };
-  zero<kTile>(acc);
+  zero<Cf>(acc);
   const bool vec = (n & 3) == 0;
   const int nk = (n + kDepth - 1) / kDepth;
 #pragma unroll
@@ -341,7 +367,7 @@ __device__ __forceinline__ void gemm_term(Acc<Cf::kTile>& acc, const float* A, c
   constexpr int kLdR = Cf::kLdR;
   const int lane = threadIdx.x & 31;
   int wm, wn, group;
-  warp_place<kTile>(wm, wn, group);
+  warp_place<Cf>(wm, wn, group);
   auto slot = [&](int mi, int ni, int e) -> float& {
     return smem[(wm + mi * 16 + acc_row(lane, e)) * kLdR + wn + ni * 8 + acc_col(lane, e)];
   };
@@ -365,7 +391,7 @@ __device__ __forceinline__ void gemm_term(Acc<Cf::kTile>& acc, const float* A, c
 
 template <class Cf>
 __device__ __forceinline__ void run_term(const Term& t, size_t off, int n, int row0,
-                                         int col0, float nrm, Acc<Cf::kTile>& acc,
+                                         int col0, float nrm, Acc<Cf>& acc,
                                          float* smem) {
   if (t.trans_a) {
     gemm_term<Cf, true, false>(acc, t.a + off, t.b + off, n, row0, col0, nrm, smem);
@@ -385,18 +411,18 @@ __device__ __forceinline__ void run_term(const Term& t, size_t off, int n, int r
 template <class Cf>
 __device__ __forceinline__ void gemm_tile(const Launch& L, const Task& T, int g, int row0,
                                           int col0, float* smem) {
-  constexpr int kTile = Cf::kTile, kMT = Cf::kMT, kNT = Cf::kNT;
+  constexpr int kMT = Cf::kMT, kNT = Cf::kNT;
   const int n = L.n;
   const size_t off = static_cast<size_t>(g) * n * n;
   const int lane = threadIdx.x & 31;
   int wm, wn, group;
-  warp_place<kTile>(wm, wn, group);
+  warp_place<Cf>(wm, wn, group);
   // The task's fields and the norm are read where they are used, which
   // keeps them out of the registers that the main loop needs.
   auto norm = [&] { return __ldcg(L.norm + g * kNormSlots); };
   // f(element, row, column, output address) over the accumulator's
   // elements inside the output, in warpgroup 0, which holds the sums.
-  auto each = [&](Acc<Cf::kTile>& acc, auto f) {  // (Acc<kTile> here crashes cudafe++ 12.9)
+  auto each = [&](Acc<Cf>& acc, auto f) {
     if (group != 0) return;
     float* __restrict__ C = T.c + off;
 #pragma unroll
@@ -411,7 +437,7 @@ __device__ __forceinline__ void gemm_tile(const Launch& L, const Task& T, int g,
         }
   };
 
-  Acc<kTile> acc;
+  Acc<Cf> acc;
   run_term<Cf>(T.term[0], off, n, row0, col0, T.term[0].scale_a ? norm() : 1.f, acc, smem);
   if (T.nterms == 2) {
     each(acc, [](float v, int, int, float* out) { *out = v; });
@@ -443,31 +469,43 @@ __global__ void __launch_bounds__(GemmCfg::kThreads, 2) stt_nsk_gemm(const Launc
 // Sum of squares of x[begin, end) in a fixed order (a thread's stride
 // order, a fixed shuffle tree per warp, the warps in order); the block's
 // total is returned to thread 0. float4 loads when x and the range are
-// 16-byte aligned.
-template <int kThreads>
+// 16-byte aligned. With kLanes > kThreads each thread also stands for
+// threads + kThreads, ... of a kLanes-thread block, which gives that
+// block's sum bit for bit.
+template <int kThreads, int kLanes = kThreads>
 __device__ float block_sum_squares(const float* __restrict__ x, size_t begin, size_t end,
                                    bool vec) {
-  float s = 0.f;
-  if (vec) {
-    const float4* x4 = reinterpret_cast<const float4*>(x);
-    for (size_t i = begin / 4 + threadIdx.x; i < end / 4; i += kThreads) {
-      const float4 v = x4[i];
-      s = fmaf(v.x, v.x, s);
-      s = fmaf(v.y, v.y, s);
-      s = fmaf(v.z, v.z, s);
-      s = fmaf(v.w, v.w, s);
-    }
-  } else {
-    for (size_t i = begin + threadIdx.x; i < end; i += kThreads) s = fmaf(x[i], x[i], s);
-  }
-  __shared__ float red[kThreads / 32];
+  constexpr int kPer = kLanes / kThreads;
+  static_assert(kPer * kThreads == kLanes, "whole lanes per thread");
+  float s[kPer];
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = s;
+  for (int j = 0; j < kPer; ++j) {
+    const size_t v = threadIdx.x + j * kThreads;
+    float a = 0.f;
+    if (vec) {
+      const float4* x4 = reinterpret_cast<const float4*>(x);
+      for (size_t i = begin / 4 + v; i < end / 4; i += kLanes) {
+        const float4 q = x4[i];
+        a = fmaf(q.x, q.x, a);
+        a = fmaf(q.y, q.y, a);
+        a = fmaf(q.z, q.z, a);
+        a = fmaf(q.w, q.w, a);
+      }
+    } else {
+      for (size_t i = begin + v; i < end; i += kLanes) a = fmaf(x[i], x[i], a);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
+    s[j] = a;
+  }
+  __shared__ float red[kLanes / 32];
+  if ((threadIdx.x & 31) == 0)
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) red[j * (kThreads / 32) + (threadIdx.x >> 5)] = s[j];
   __syncthreads();
   float t = 0.f;
   if (threadIdx.x == 0)
-    for (int w = 0; w < kThreads / 32; ++w) t += red[w];
+    for (int w = 0; w < kLanes / 32; ++w) t += red[w];
   return t;
 }
 
@@ -915,6 +953,216 @@ int lyap_chain(const float* z, const float* gr, float* q, float* a, float* a2, f
                             a2, q2, e, d, norm, n, num_iters);
 }
 
+// The grouped launch of B1: the chains of several groups (each G_k
+// matrices of C_k x C_k) in one persistent launch of one-warpgroup blocks,
+// each block working for one group, each group synchronising only its own
+// blocks between steps. The host plans the blocks per group from the
+// shapes (ops/cuda/ns_sqrtm.py, plan_groups) within what can be resident at
+// once, and the launch refuses a plan past that (kErrGroupsNotResident).
+//
+// Why one warpgroup a block, three blocks an SM. A step of (2, 512, 512)
+// with its Y and Z products has 256 tiles of 64x64; stt_nsk_gemm runs them
+// in one wave, two blocks of one warpgroup an SM, at 240 registers. A
+// persistent launch that leaves the C = 512 group fewer than 256 tile
+// slots runs that step in two waves: with the cluster regime's 256-thread
+// blocks (255 registers, one an SM) the group kept 96-119 blocks of two
+// tiles and its chain took 1.07 ms against 0.60 (H100). So the blocks are
+// stt_nsk_gemm's own, held to 168 registers, three an SM: the C = 512
+// group keeps its 256 slots and the other groups take the third. The
+// cluster regime's tile, two warpgroups splitting k, does not fit such a
+// block: C <= 256 groups compute 32x32 tiles with one warpgroup (the same
+// 3xTF32 products and 16-deep partials, summed in k order), so their
+// results differ from stt_nsk_ns_cluster's in rounding only; GEMM-regime
+// groups equal stt_nsk_gemm's chain bit for bit (the norm's partials as
+// stt_nsk_norm_partials takes them, 256 lanes a part; an output element's
+// sum does not depend on its tile's shape). A step of one product (T)
+// has half the tiles of a step of two; it runs in 64x32 tiles, so that it
+// too fills the group's 256 blocks: on the card the C = 512 chain alone
+// took 0.687 ms so against 0.745 in 64x64 tiles. The tile runs out of
+// line (group_tile), its registers apart from the group's loop state;
+// held to 168, the 64x64 tile spills about 340 bytes (0 at stt_nsk_gemm's
+// 240), the price of the third block an SM.
+constexpr int kMaxGroups = 8;
+constexpr int kGroupThreads = 128;
+constexpr int kGroupBlocksPerSM = 3;
+using GroupGemmCfg = GemmCfg;               // C > kClusterMaxC
+using GroupGemmHalfCfg = Cfg<64, 1, 32>;    // ... its steps of one product
+using GroupSmallCfg = Cfg<32, 1>;           // C <= kClusterMaxC
+constexpr int kGroupSmemBytes = cmax(cmax(GroupGemmCfg::kSmemBytes, GroupGemmHalfCfg::kSmemBytes),
+                                     GroupSmallCfg::kSmemBytes);
+// Words of the barrier counters per group: one 128-byte line each.
+constexpr int kBarrierWords = 32;
+
+struct Group {
+  const float* a;
+  float *y, *z, *t, *y2, *z2, *norm;
+  unsigned* bar;  // arrivals at the group's barriers, zero at the launch
+  int g, n;
+  int block0, blocks;  // the group's blocks: [block0, block0 + blocks)
+};
+
+struct Groups {
+  Group grp[kMaxGroups];
+  int count, num_iters;
+};
+
+// A barrier over the group's blocks in global memory: each block adds one
+// arrival and waits for `target`, the arrivals of every block at every
+// barrier so far. The arrival releases the block's writes (ordered before
+// it by the __syncthreads) at GPU scope; the wait's acquire orders the
+// reads after it. All the group's blocks are resident (the launch checks
+// the plan against the occupancy), so the wait ends; should it not
+// (another kernel holding the SMs), the launch fails after
+// kBarrierTimeoutNs rather than hang the device.
+constexpr long long kBarrierTimeoutNs = 10000000000LL;
+
+__device__ __forceinline__ long long global_ns() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+__device__ __forceinline__ void group_sync(unsigned* bar, unsigned target) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    asm volatile("red.release.gpu.global.add.u32 [%0], 1;" ::"l"(bar) : "memory");
+    const long long t0 = global_ns();
+    for (;;) {
+      unsigned seen;
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(seen) : "l"(bar) : "memory");
+      if (seen >= target) break;
+      if (global_ns() - t0 > kBarrierTimeoutNs) __trap();
+    }
+  }
+  __syncthreads();
+}
+
+// One tile of a step, out of line: the tile's registers are then
+// allocated apart from the group's loop state.
+template <class Cf>
+__device__ __noinline__ void group_tile(const Launch& L, const Task& T, int g, int row0,
+                                        int col0, float* smem) {
+  gemm_tile<Cf>(L, T, g, row0, col0, smem);
+}
+
+// Block b's share of step L of group G: the step's work items (task,
+// matrix, output tile of Cf's shape) in order, item i to block i mod blocks.
+template <class Cf>
+__device__ __forceinline__ void group_step(const Launch& L, const Group& G, int b,
+                                           float* smem) {
+  const int rows = (G.n + Cf::kTile - 1) / Cf::kTile, cols = (G.n + Cf::kTileN - 1) / Cf::kTileN;
+  const int tiles = rows * cols, per_task = G.g * tiles, items = L.ntask * per_task;
+  for (int i = b; i < items; i += G.blocks) {
+    const int r = i % per_task, tile = r % tiles;
+    group_tile<Cf>(L, L.task[i / per_task], r / tiles, (tile / cols) * Cf::kTile,
+                   (tile % cols) * Cf::kTileN, smem);
+  }
+}
+
+// Block b of group G runs the group's plan: its steps of two products in
+// CfTwo's tiles, of one in CfOne's. The prologue takes each matrix's norm
+// from kNormBlocks partial sums, as the GEMM regime's launches take it.
+template <class CfTwo, class CfOne>
+__device__ __forceinline__ void group_run(const Group& G, int b, int num_iters,
+                                          StepTable& tab, float* smem) {
+  const int n = G.n;
+  const size_t nn = static_cast<size_t>(n) * n;
+  unsigned target = 0;
+  auto barrier = [&] {
+    target += G.blocks;
+    group_sync(G.bar, target);
+  };
+  int total = 0;
+  for (int first = 0; first == 0 || first < total; first += kPlanChunk) {
+    __syncthreads();  // the table is read no more
+    if (threadIdx.x == 0) {
+      tab.first = first;
+      tab.count = 0;
+      tab.total = 0;
+      tab.out1 = nullptr;
+      RecordExec rec{&tab};
+      ns_plan(rec, G.a, G.y, G.z, G.t, G.y2, G.z2, G.norm, n, num_iters, true);
+    }
+    __syncthreads();
+    total = tab.total;
+    if (first == 0) {
+      const bool vec = (nn & 3) == 0;
+      for (int p = b; p < G.g * kNormBlocks; p += G.blocks) {
+        size_t begin, end;
+        part_range(nn, kNormBlocks, p % kNormBlocks, vec, begin, end);
+        const float s = block_sum_squares<kGroupThreads, kNormThreads>(
+            tab.in0 + (p / kNormBlocks) * nn, begin, end, vec);
+        if (threadIdx.x == 0) G.norm[(p / kNormBlocks) * kNormSlots + 1 + p % kNormBlocks] = s;
+        __syncthreads();  // the reduction's shared words are free
+      }
+      barrier();
+      for (int m = 0; m < G.g; ++m) {
+        const float nrm = norm_from_partials(G.norm, m, kNormBlocks);
+        if (b == 0 && threadIdx.x == 0) G.norm[m * kNormSlots] = nrm;
+        ns_start_elems(tab.in0, nrm, tab.out0, tab.out1, m * nn, n, tab.num_iters, tab.z_last,
+                       static_cast<size_t>(b) * kGroupThreads + threadIdx.x,
+                       static_cast<size_t>(G.blocks) * kGroupThreads);
+      }
+      barrier();
+    }
+    for (int s = 0; s < tab.count; ++s) {
+      const Launch& L = tab.step[s];
+      if (L.ntask == 1) {
+        group_step<CfOne>(L, G, b, smem);
+      } else {
+        group_step<CfTwo>(L, G, b, smem);
+      }
+      barrier();
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kGroupThreads, kGroupBlocksPerSM)
+stt_nsk_ns_groups(const Groups P) {
+  __shared__ StepTable tab;
+  __shared__ Group grp;
+  if (threadIdx.x == 0) {
+    int k = 0;
+#pragma unroll
+    for (int j = 1; j < kMaxGroups; ++j)
+      if (j < P.count && static_cast<int>(blockIdx.x) >= P.grp[j].block0) k = j;
+#pragma unroll
+    for (int j = 0; j < kMaxGroups; ++j)
+      if (j == k) grp = P.grp[j];
+  }
+  __syncthreads();
+  const int b = static_cast<int>(blockIdx.x) - grp.block0;
+  if (grp.n > kClusterMaxC) {
+    group_run<GroupGemmCfg, GroupGemmHalfCfg>(grp, b, P.num_iters, tab, dyn_smem());
+  } else {
+    group_run<GroupSmallCfg, GroupSmallCfg>(grp, b, P.num_iters, tab, dyn_smem());
+  }
+}
+
+// Blocks of stt_nsk_ns_groups resident at once on the current device (the
+// occupancy API's blocks per SM times the SMs), once per device; or minus a
+// cudaError_t.
+int groups_capacity() {
+  static std::mutex mu;
+  static std::vector<std::pair<int, int>> done;  // (device, capacity)
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  std::lock_guard<std::mutex> lock(mu);
+  for (const auto& d : done)
+    if (d.first == device) return d.second;
+  int per_sm = 0, sms = 0;
+  err = cudaFuncSetAttribute(stt_nsk_ns_groups, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kGroupSmemBytes);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, stt_nsk_ns_groups,
+                                                        kGroupThreads, kGroupSmemBytes);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  done.emplace_back(device, per_sm * sms);
+  return per_sm * sms;
+}
+
 }  // namespace
 }  // namespace stt
 
@@ -933,6 +1181,51 @@ extern "C" int stt_ns_sqrtm_yz_f32(const float* a, float* y, float* z, float* t,
   return stt::ns_chain(a, y, z, t, y2, z2, norm, g, n, num_iters, true,
                        static_cast<cudaStream_t>(stream_ptr));
 }
+
+// B1 for several groups in one launch. desc holds, per group, a, y, z, t,
+// y2, z2, norm (device pointers as B1's, norm of g * stt_ns_norm_slots()
+// floats) and g, n, blocks (the plan's blocks for the group, at least one):
+// 10 values a group, `count` groups (1 to stt_ns_max_groups()). bar:
+// count * stt_ns_barrier_words() words, zeroed here on the stream.
+extern "C" int stt_ns_sqrtm_yz_groups_f32(const long long* desc, int count, int num_iters,
+                                          void* bar, void* stream_ptr) {
+  if (count < 1 || count > stt::kMaxGroups || num_iters < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int capacity = stt::groups_capacity();
+  if (capacity < 0) return -capacity;
+  stt::Groups P{};
+  P.count = count;
+  P.num_iters = num_iters;
+  int blocks = 0;
+  for (int k = 0; k < count; ++k) {
+    const long long* d = desc + 10 * k;
+    stt::Group& G = P.grp[k];
+    G.a = reinterpret_cast<const float*>(d[0]);
+    float** outs[6] = {&G.y, &G.z, &G.t, &G.y2, &G.z2, &G.norm};
+    for (int i = 0; i < 6; ++i) *outs[i] = reinterpret_cast<float*>(d[1 + i]);
+    G.g = static_cast<int>(d[7]);
+    G.n = static_cast<int>(d[8]);
+    G.blocks = static_cast<int>(d[9]);
+    if (G.g <= 0 || G.n <= 0 || G.blocks <= 0) return static_cast<int>(cudaErrorInvalidValue);
+    G.bar = static_cast<unsigned*>(bar) + stt::kBarrierWords * k;
+    G.block0 = blocks;
+    blocks += G.blocks;
+  }
+  if (blocks > capacity) return stt::kErrGroupsNotResident;
+  const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  cudaError_t err = cudaMemsetAsync(bar, 0, sizeof(unsigned) * stt::kBarrierWords * count, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  stt::stt_nsk_ns_groups<<<blocks, stt::kGroupThreads, stt::kGroupSmemBytes, stream>>>(P);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks of the grouped launch the current device holds at once, or minus a
+// cudaError_t.
+extern "C" int stt_ns_groups_capacity() { return stt::groups_capacity(); }
+
+extern "C" int stt_ns_max_groups() { return stt::kMaxGroups; }
+
+extern "C" int stt_ns_barrier_words() { return stt::kBarrierWords; }
 
 // B2. As B1 with y the only output; t, y2, z, z2: scratch.
 extern "C" int stt_ns_sqrtm_f32(const float* a, float* y, float* t, float* y2, float* z,

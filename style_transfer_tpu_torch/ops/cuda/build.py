@@ -38,6 +38,10 @@ _VP, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "stt_ns_norm_slots": [],
     "stt_ns_sqrtm_yz_f32": [_VP] * 7 + [_I, _I, _I, _VP],
+    "stt_ns_sqrtm_yz_groups_f32": [_VP, _I, _I, _VP, _VP],
+    "stt_ns_groups_capacity": [],
+    "stt_ns_max_groups": [],
+    "stt_ns_barrier_words": [],
     "stt_ns_sqrtm_f32": [_VP] * 7 + [_I, _I, _I, _VP],
     "stt_lyap_bwd_f32": [_VP] * 9 + [_I, _I, _I, _VP],
     "stt_zoom_ls_num_fields": [],

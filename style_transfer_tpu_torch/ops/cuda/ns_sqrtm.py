@@ -5,33 +5,42 @@ the three TPU kernels of ``style_transfer_tpu/ops/pallas/ns_sqrtm.py``, every
 product in 3xTF32 on the tensor cores (FP32 accuracy; emulated on the CPU
 by :func:`matmul_tf32x3` for the tests):
 
-* :func:`ns_sqrtm_yz` (``_ns_fwd_yz_kernel``): for (G, C, C) float32
-  matrices, (Y, Z) ~ (A^{1/2}, A^{-1/2}) after ``num_iters`` coupled NS
-  iterations;
+* :func:`ns_sqrtm_yz_groups` (``_ns_fwd_yz_kernel``): for a list of
+  groups, each (G_k, C_k, C_k) float32 matrices, each group's (Y, Z) ~
+  (A^{1/2}, A^{-1/2}) after ``num_iters`` coupled NS iterations, every
+  group's chain in one launch (:func:`plan_groups` splits the blocks);
+  :func:`ns_sqrtm_yz` is its one-group case;
 * :func:`ns_sqrtm` (``_ns_fwd_kernel``): the same chain emitting only Y;
 * :func:`lyap_bwd` (``_lyap_bwd_kernel``): Q with Z Q + Q Z = G by the
   iterative Lyapunov solver, the backward of the NS square root.
 
 Each wrapper dispatches on the tensor's device alone: a CPU tensor takes the
 plain version (``ops/sqrtm.py``); a CUDA tensor launches the kernel or
-raises. ``<wrapper>.launches`` counts the kernel launches; a launch
-recorded into a CUDA graph counts once per replay of the graph, which the
-graph's runner adds (:func:`launch_counts`, :func:`add_launches`).
-:class:`TraceSqrtmNS` gives ``tr(Y)`` with the backward ½·g·Z outside the
-kernel; :class:`SqrtmNSLyap` gives the full square root with the Lyapunov
-kernel as its backward, as the JAX package computes them.
+raises. ``<wrapper>.launches`` counts the kernel launches (B1's:
+``ns_sqrtm_yz.launches``, one a grouped launch); a launch recorded into a
+CUDA graph counts once per replay of the graph, which the graph's runner
+adds (:func:`launch_counts`, :func:`add_launches`). Each grouped launch
+records the ``ns-groups`` counter (``utils/trace.py``): the groups and
+each one's blocks. :class:`TraceSqrtmNS` gives each group's ``tr(Y)`` with
+the backward ½·g·Z outside the kernel; :class:`SqrtmNSLyap` gives the full
+square root with the Lyapunov kernel as its backward, as the JAX package
+computes them.
 """
 
 import contextlib
+import ctypes
 import functools
 
 import torch
 
+from ...utils import trace as T
 from ..sqrtm import _batch_trace, _lyap_backward, _sqrtm_ns_yz, sqrtm_ns
 from . import build
 
 __all__ = [
-    "ns_sqrtm_yz", "ns_sqrtm_yz_plain", "TraceSqrtmNS", "trace_sqrtm_ns",
+    "ns_sqrtm_yz", "ns_sqrtm_yz_plain", "ns_sqrtm_yz_groups", "ns_sqrtm_yz_serial",
+    "plan_groups", "NSGroupsResidencyError", "TraceSqrtmNS", "trace_sqrtm_ns",
+    "trace_sqrtm_ns_groups",
     "ns_sqrtm", "ns_sqrtm_plain", "lyap_bwd", "lyap_bwd_plain",
     "SqrtmNSLyap", "sqrtm_ns_lyap", "tf32_round", "matmul_tf32x3",
     "ns_first_iteration", "ns_sqrtm_yz_tf32x3", "lyap_bwd_tf32x3",
@@ -143,8 +152,16 @@ def _capability(index):
     return torch.cuda.get_device_capability(index)
 
 
-# stt::kErrClusterUnschedulable (csrc/ns_common.cuh).
+# stt::kErrClusterUnschedulable, stt::kErrGroupsNotResident (csrc/ns_common.cuh).
 _ERR_CLUSTER_UNSCHEDULABLE = 10000
+_ERR_GROUPS_NOT_RESIDENT = 10001
+# stt::kClusterMaxC: the largest C of the cluster regime.
+_CLUSTER_MAX_C = 256
+
+
+class NSGroupsResidencyError(RuntimeError):
+    """The grouped launch's plan needs more blocks resident at once than
+    the device holds: its groups' barriers would wait for ever."""
 
 
 def _launch(name, symbol, inputs, n_out, n_scratch, num_iters):
@@ -183,23 +200,169 @@ def _norm_slots(lib):
     return lib.stt_ns_norm_slots()
 
 
-def ns_sqrtm_yz(a, num_iters: int = 12):
-    """(A^{1/2}, A^{-1/2}) of (a batch of) SPD matrices by coupled NS.
+def _group_work(g, c, beside_gemm=False):
+    """A (G, C, C) group in the grouped launch (``csrc/ns_sqrtm.cu``,
+    ``stt_nsk_ns_groups``: blocks of one warpgroup, each computing a tile
+    at a time, 64x64 for C > 256 as the GEMM regime, 32x32 else): (the
+    tiles of an iteration's Y and Z products, the blocks the group wants,
+    the time of a tile in units of k-depth x tile area). A group wants a
+    block for every tile of both products, so that each step runs in one
+    wave; beside a C > 256 group (``beside_gemm``), a C <= 256 group wants
+    a block a tile and computes both products of its tile in turn, as a
+    cluster block does: its steps are short beside the other's, and each
+    block it adds shares an SM with the other's tiles."""
+    tile = 64 if c > _CLUSTER_MAX_C else 32
+    tiles = g * (-(-c // tile)) ** 2
+    halve = beside_gemm and c <= _CLUSTER_MAX_C
+    return 2 * tiles, tiles if halve else 2 * tiles, c * tile * tile
 
-    The input must be float32, (C, C) or (G, C, C). CPU tensors take the
-    plain version; CUDA tensors must also be contiguous and on an sm_90
-    device, and launch the kernel on the current stream. No fallback.
+
+def plan_groups(shapes, capacity):
+    """Blocks of the grouped launch for each group, from the shapes alone.
+
+    ``shapes``: (G, C) of each group; ``capacity``: the blocks the device
+    holds resident at once. Each group gets the blocks it wants
+    (:func:`_group_work`) if all fit, and a single group as many as it can
+    use. Otherwise each group starts at one block and each further block
+    goes to the group whose iteration would take longest (its rounds of
+    tiles times a tile's time), until the card is full or every want is
+    met. Raises :class:`NSGroupsResidencyError` with more groups than
+    blocks."""
+    gemm = any(c > _CLUSTER_MAX_C for _, c in shapes)
+    work = [_group_work(g, c, gemm) for g, c in shapes]
+    wants = [want for _, want, _ in work]
+    if sum(wants) <= capacity:
+        return wants
+    if len(shapes) > capacity:
+        raise NSGroupsResidencyError(
+            f"ns_sqrtm_yz_groups: {len(shapes)} groups on {capacity} resident blocks")
+    blocks = [1] * len(shapes)
+
+    def time(k):
+        tiles, _, unit = work[k]
+        return -(-tiles // blocks[k]) * unit
+
+    for _ in range(capacity - len(shapes)):
+        open_ = [k for k in range(len(shapes)) if blocks[k] < wants[k]]
+        if not open_:
+            break
+        blocks[max(open_, key=lambda k: (time(k), -k))] += 1
+    return blocks
+
+
+@functools.lru_cache(maxsize=None)
+def _groups_capacity(lib, index):
+    cap = lib.stt_ns_groups_capacity()
+    if cap < 0:
+        raise RuntimeError(f"ns_sqrtm_yz_groups: occupancy query failed, cudaError_t {-cap}")
+    return cap
+
+
+def _launch_groups(mats, num_iters):
+    """One launch of ``stt_ns_sqrtm_yz_groups_f32`` for every group, on the
+    groups' device and current stream. The largest C comes first in the
+    grid, so the block scheduler's first pass spreads the GEMM regime's
+    blocks one to an SM. Scratch is one allocation: each group's T and
+    ping-pong buffers and its norms, then the barrier words."""
+    x = mats[0]
+    batched = [t if t.ndim == 3 else t.unsqueeze(0) for t in mats]
+    lib = build.load()
+    order = sorted(range(len(batched)), key=lambda k: -batched[k].shape[-1])
+    outs = [(torch.empty_like(t), torch.empty_like(t)) for t in batched]
+    offsets, size = [], 0
+
+    def take(floats):  # 256-byte aligned, for the float4 copies
+        nonlocal size
+        offsets.append(size)
+        size += -(-floats // 64) * 64
+
+    slots = _norm_slots(lib)
+    for k in order:
+        g, n, _ = batched[k].shape
+        for _ in range(3):
+            take(g * n * n)
+        take(g * slots)
+    take(len(batched) * lib.stt_ns_barrier_words())
+    scratch = torch.empty((size,), dtype=torch.float32, device=x.device)
+    base = scratch.data_ptr()
+    switch = x.device.index != torch.cuda.current_device()
+    with torch.cuda.device(x.device) if switch else contextlib.nullcontext():
+        blocks = plan_groups([tuple(batched[k].shape[:2]) for k in order],
+                             _groups_capacity(lib, x.device.index))
+        desc = []
+        for i, k in enumerate(order):
+            g, n, _ = batched[k].shape
+            bufs = [base + 4 * off for off in offsets[4 * i:4 * i + 4]]
+            desc += [batched[k].data_ptr(), outs[k][0].data_ptr(), outs[k][1].data_ptr(),
+                     *bufs, g, n, blocks[i]]
+        err = lib.stt_ns_sqrtm_yz_groups_f32(
+            (ctypes.c_longlong * len(desc))(*desc), len(order), num_iters,
+            base + 4 * offsets[-1], torch.cuda.current_stream(x.device).cuda_stream)
+    if err == _ERR_GROUPS_NOT_RESIDENT:
+        raise NSGroupsResidencyError(
+            f"ns_sqrtm_yz_groups: {sum(blocks)} blocks planned, more than "
+            f"{torch.cuda.get_device_name(x.device)} holds resident")
+    if err != 0:
+        raise RuntimeError(f"ns_sqrtm_yz_groups: kernel launch failed, cudaError_t {err}")
+    T.counter("ns-groups", {"groups": len(order), "blocks": [
+        [batched[k].shape[0], batched[k].shape[-1], b] for k, b in zip(order, blocks)]})
+    return [(y.view(m.shape), z.view(m.shape)) for (y, z), m in zip(outs, mats)]
+
+
+def ns_sqrtm_yz_groups(mats, num_iters: int = 12):
+    """(A^{1/2}, A^{-1/2}) of every group of SPD matrices by coupled NS:
+    ``[(Y_k, Z_k)]`` for ``mats = [A_k]``.
+
+    Each input must be float32, (C, C) or (G, C, C), and all on one device.
+    CPU tensors take the plain version a group at a time; CUDA tensors must
+    also be contiguous and on an sm_90 device, and make one launch on the
+    current stream for all the groups (at most ``stt_ns_max_groups()``, 8).
+    No fallback.
     """
-    _check_input("ns_sqrtm_yz", a, num_iters)
-    if a.device.type == "cpu":
-        return ns_sqrtm_yz_plain(a, num_iters)
-    _check_cuda_input("ns_sqrtm_yz", a)
-    y, z = _launch("ns_sqrtm_yz", "stt_ns_sqrtm_yz_f32", [a], 2, 3, num_iters)
+    mats = list(mats)
+    if not mats:
+        raise ValueError("ns_sqrtm_yz_groups: no groups")
+    for a in mats:
+        _check_input("ns_sqrtm_yz", a, num_iters)
+        if a.device != mats[0].device:
+            raise ValueError(f"ns_sqrtm_yz_groups: groups on {mats[0].device} and {a.device}")
+    if mats[0].device.type == "cpu":
+        return [ns_sqrtm_yz_plain(a, num_iters) for a in mats]
+    for a in mats:
+        _check_cuda_input("ns_sqrtm_yz", a)
+    limit = _max_groups(build.load())
+    if len(mats) > limit:
+        raise ValueError(f"ns_sqrtm_yz_groups: {len(mats)} groups, at most {limit} a launch")
+    out = _launch_groups(mats, num_iters)
     ns_sqrtm_yz.launches += 1
-    return y, z
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _max_groups(lib):
+    return lib.stt_ns_max_groups()
+
+
+def ns_sqrtm_yz(a, num_iters: int = 12):
+    """(A^{1/2}, A^{-1/2}) of (a batch of) SPD matrices by coupled NS: the
+    one-group case of :func:`ns_sqrtm_yz_groups`, with its input rules and
+    dispatch."""
+    return ns_sqrtm_yz_groups([a], num_iters)[0]
 
 
 ns_sqrtm_yz.launches = 0
+
+
+def ns_sqrtm_yz_serial(a, num_iters: int = 12):
+    """B1 by the per-group kernels (``stt_ns_sqrtm_yz_f32``): a CUDA
+    tensor's chain in the GEMM regime's launches, one a step, or one
+    cluster launch. The reference of the grouped launch in the card tests
+    and ``tools/ns_kernel_times.py``; the program calls the grouped one. A
+    CUDA tensor only; counts no B1 launch."""
+    _check_input("ns_sqrtm_yz_serial", a, num_iters)
+    _check_cuda_input("ns_sqrtm_yz_serial", a)
+    y, z = _launch("ns_sqrtm_yz_serial", "stt_ns_sqrtm_yz_f32", [a], 2, 3, num_iters)
+    return y, z
 
 
 def ns_sqrtm(a, num_iters: int = 12):
@@ -255,23 +418,31 @@ def add_launches(counts, times: int = 1):
 
 
 class TraceSqrtmNS(torch.autograd.Function):
-    """``tr(sqrtm(A))`` per matrix; saves Z ~ A^{-1/2} for the analytic
-    backward d tr(A^{1/2}) / dA = A^{-1/2} / 2."""
+    """``tr(sqrtm(A_k))`` per matrix of each group, by one
+    :func:`ns_sqrtm_yz_groups` call; saves each Z_k ~ A_k^{-1/2} for the
+    analytic backward d tr(A^{1/2}) / dA = A^{-1/2} / 2, a group at a
+    time outside the kernel."""
 
     @staticmethod
-    def forward(ctx, a, num_iters):
-        y, z = ns_sqrtm_yz(a, num_iters)
-        ctx.save_for_backward(z)
-        return _batch_trace(y)
+    def forward(ctx, num_iters, *mats):
+        yz = ns_sqrtm_yz_groups(mats, num_iters)
+        ctx.save_for_backward(*(z for _, z in yz))
+        return tuple(_batch_trace(y) for y, _ in yz)
 
     @staticmethod
-    def backward(ctx, g):
-        (z,) = ctx.saved_tensors
-        return 0.5 * g[..., None, None] * z, None
+    def backward(ctx, *grads):
+        return (None, *(0.5 * g[..., None, None] * z
+                        for g, z in zip(grads, ctx.saved_tensors)))
+
+
+def trace_sqrtm_ns_groups(mats, num_iters: int = 12):
+    """``[tr(sqrtm(A_k))]`` for ``mats = [A_k]``, one launch on a CUDA
+    device."""
+    return list(TraceSqrtmNS.apply(num_iters, *mats))
 
 
 def trace_sqrtm_ns(a, num_iters: int = 12):
-    return TraceSqrtmNS.apply(a, num_iters)
+    return TraceSqrtmNS.apply(num_iters, a)[0]
 
 
 class SqrtmNSLyap(torch.autograd.Function):

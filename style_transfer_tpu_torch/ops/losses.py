@@ -52,6 +52,8 @@ __all__ = [
     "w2_loss",
     "w2_loss_from_moments",
     "w2_losses_batched",
+    "w2_inner",
+    "w2_losses_from_trace",
     "tv_loss",
     "global_numel",
 ]
@@ -229,14 +231,26 @@ def w2_losses_batched(means, covs, target: W2Target, sqrtm_iters: int = 12,
     ``sqrtm_fn`` (default: the dispatching Lyapunov-backward NS) gives the
     full matrix.
     """
-    mean_diff = torch.mean((means - target.mean) ** 2, dim=-1)
-    inner = target.cov_sqrt @ (covs @ target.cov_sqrt)
+    inner = w2_inner(covs, target)
     if trace_sqrtm_fn is not None:
-        tr_sqrt = trace_sqrtm_fn(inner, sqrtm_iters)
-        cov_diff = (_trace(target.cov + covs) - 2.0 * tr_sqrt) / covs.shape[-1]
-    else:
-        sqrt_term = (sqrtm_fn or sqrtm_ns_lyap)(inner, sqrtm_iters)
-        cov_diff = _trace(target.cov + covs - 2.0 * sqrt_term) / covs.shape[-1]
+        return w2_losses_from_trace(means, covs, target, trace_sqrtm_fn(inner, sqrtm_iters))
+    mean_diff = torch.mean((means - target.mean) ** 2, dim=-1)
+    sqrt_term = (sqrtm_fn or sqrtm_ns_lyap)(inner, sqrtm_iters)
+    cov_diff = _trace(target.cov + covs - 2.0 * sqrt_term) / covs.shape[-1]
+    return mean_diff + cov_diff
+
+
+def w2_inner(covs, target: W2Target):
+    """The matrices whose square roots the W2 loss takes, stacked like
+    ``covs``: ``cov_sqrt_t @ cov @ cov_sqrt_t``."""
+    return target.cov_sqrt @ (covs @ target.cov_sqrt)
+
+
+def w2_losses_from_trace(means, covs, target: W2Target, tr_sqrt):
+    """:func:`w2_losses_batched`'s losses from ``tr_sqrt``, the traces of
+    the square roots of :func:`w2_inner`'s matrices (G,)."""
+    mean_diff = torch.mean((means - target.mean) ** 2, dim=-1)
+    cov_diff = (_trace(target.cov + covs) - 2.0 * tr_sqrt) / covs.shape[-1]
     return mean_diff + cov_diff
 
 

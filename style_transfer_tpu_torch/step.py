@@ -39,7 +39,7 @@ from .models.vgg import INPUT, extract_features
 from .ops import losses as L
 from .ops.cuda import ns_sqrtm as K
 from .ops.cuda import zoom_ls as ZL
-from .ops.cuda.ns_sqrtm import sqrtm_ns_lyap, trace_sqrtm_ns
+from .ops.cuda.ns_sqrtm import sqrtm_ns_lyap, trace_sqrtm_ns_groups
 from .parallel.mesh import all_reduce_
 from .utils import trace as T
 from .utils.ema import EMAState, ema_update_
@@ -157,13 +157,15 @@ def build_loss_fn(cfg: StepConfig, mesh=None, mark=None):
 
     def w2_total(moments, consts):
         """W2 style terms, grouped by channel count so same-C layers run
-        their Newton-Schulz chains as one batched (G, C, C) kernel call."""
+        their Newton-Schulz chains as one batched (G, C, C) group. Under
+        ``--w2-grad trace`` every group's chain goes into one call
+        (``trace_sqrtm_ns_groups``: one kernel launch on a card); under
+        ``lyap`` each group makes its own."""
         groups = {}
         for layer, w in zip(cfg.style_layers, cfg.style_layer_weights):
             c = consts["style"][layer].mean.shape[-1]
             groups.setdefault(c, []).append((layer, w))
-        trace_fn = trace_sqrtm_ns if cfg.w2_grad == "trace" else None
-        total = 0.0
+        stacked = []
         for items in groups.values():
             means, covs, t_mean, t_cov, t_cs, weights = [], [], [], [], [], []
             for layer, w in items:
@@ -177,10 +179,18 @@ def build_loss_fn(cfg: StepConfig, mesh=None, mark=None):
                 weights.append(w)
             target = L.W2Target(mean=torch.stack(t_mean), cov=torch.stack(t_cov),
                                 cov_sqrt=torch.stack(t_cs))
-            losses = L.w2_losses_batched(
-                torch.stack(means), torch.stack(covs), target, cfg.sqrtm_iters,
-                sqrtm_fn=sqrtm_ns_lyap, trace_sqrtm_fn=trace_fn,
-            )
+            stacked.append((torch.stack(means), torch.stack(covs), target, weights))
+        if cfg.w2_grad == "trace":
+            traces = trace_sqrtm_ns_groups(
+                [L.w2_inner(covs, target) for _, covs, target, _ in stacked], cfg.sqrtm_iters)
+            losses_of = [L.w2_losses_from_trace(means, covs, target, tr)
+                         for (means, covs, target, _), tr in zip(stacked, traces)]
+        else:
+            losses_of = [L.w2_losses_batched(means, covs, target, cfg.sqrtm_iters,
+                                             sqrtm_fn=sqrtm_ns_lyap)
+                         for means, covs, target, _ in stacked]
+        total = 0.0
+        for (_, _, _, weights), losses in zip(stacked, losses_of):
             # Python-scalar weights: a host-to-device copy here would
             # synchronize the stream in the middle of every step.
             total = total + sum(w * l for w, l in zip(weights, losses.unbind(0)))

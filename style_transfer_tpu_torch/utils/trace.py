@@ -35,7 +35,10 @@ keeps, in a bounded ring of :class:`Event`:
   call of the VGG trunk ran (``channels_last`` or ``nchw``), once a call
   (an eager call, a warm-up or a capture; a replay runs no Python);
   ``zoom-trials``, the line-search trials one call of the zoom runner ran
-  (eager or replayed), at the call's end.
+  (eager or replayed), at the call's end; ``ns-groups``, at each grouped
+  launch of the NS kernel B1 (``ops/cuda/ns_sqrtm.py``, on a card: one a
+  loss evaluation, eager or captured), ``{"groups": k, "blocks": [[G, C,
+  blocks], ...]}``, the launch's groups and each one's planned blocks.
 
 ``STT_DEBUG_TIMING`` prints each span's time as it ends, and each counter.
 """
@@ -130,9 +133,9 @@ class Event:
 class SpanRecorder:
     """Spans, host waits, section samples and counters in a ring of
     ``capacity`` records (the oldest go first), and the seconds of each
-    span name. A default 512x384 image records about 270 (its spans, 102
-    host waits and 20 ``trunk-layout`` counters), so the ring holds the
-    last 240 or so."""
+    span name. A default 512x384 image records about 280 (its spans, 102
+    host waits, 20 ``trunk-layout`` and 10 ``ns-groups`` counters), so the
+    ring holds the last 230 or so."""
 
     def __init__(self, capacity: int = 1 << 16):
         self._ring = collections.deque(maxlen=capacity)

@@ -5,8 +5,8 @@ Gram style loss, scaled content loss, average and L2 pooling, the style
 image's scale (``style_scale_fac`` with ``align``, ``style_size``) and the
 ``style_stats`` init, each through both engines' two-scale pyramid 48 ->
 68 px (8 + 8 Adam iterations) with the same random VGG-19 weights in
-float32. The port's NS wrapper takes its plain version on CPU tensors; it is
-counted here as the card would count the B1 launches. The cases that differ
+float32. The port's NS wrapper takes its plain version on CPU tensors; its
+grouped calls are counted here as the card would count the B1 launches. The cases that differ
 only in ``stylize``'s options share one JAX engine (reseeded), which keeps
 its compiled programs: a JAX engine's first pyramid here is mostly compile.
 """
@@ -66,9 +66,9 @@ def test_config4_option_matches_jax(case, content_pil, style_pil, monkeypatch, j
     jst = jax_engine(**engine_kw)
     tst = T.StyleTransfer(device="cpu", weights=PARAMS, callback_chunk=8, **engine_kw)
     ns_calls = []
-    plain = K.ns_sqrtm_yz_plain
-    monkeypatch.setattr(K, "ns_sqrtm_yz_plain",
-                        lambda *a: ns_calls.append(1) or plain(*a))
+    grouped = K.ns_sqrtm_yz_groups
+    monkeypatch.setattr(K, "ns_sqrtm_yz_groups",
+                        lambda mats, *a: ns_calls.append(len(mats)) or grouped(mats, *a))
     j_its, t_its = [], []
     jst.stylize(content_pil, [style_pil], callback=j_its.append, **PYRAMID, **stylize_kw)
     tst.stylize(content_pil, [style_pil], callback=t_its.append, **PYRAMID, **stylize_kw)
@@ -82,7 +82,7 @@ def test_config4_option_matches_jax(case, content_pil, style_pil, monkeypatch, j
     assert t_img.shape == j_img.shape == (canvases[-1][1], canvases[-1][0], 3)
     mse = float(np.mean((t_img - j_img) ** 2))
     assert 10 * np.log10(1.0 / max(mse, 1e-12)) > 40.0
-    # The W2 loss takes one square root per channel group (4) and iteration
-    # (16): on a card, 64 launches of B1. Gram takes none.
-    assert len(ns_calls) == (0 if case == "gram" else 4 * 16)
+    # The W2 loss takes one grouped square root per iteration (16), of its
+    # four channel groups: on a card, 16 launches of B1. Gram takes none.
+    assert ns_calls == ([] if case == "gram" else [4] * 16)
     assert K.ns_sqrtm_yz.launches == 0  # CPU tensors never launch the kernel

@@ -657,7 +657,7 @@ def test_zoom_replay_counts_launches_per_evaluation():
     """A graph runner's zoom replay (``step._Runner._replay``) plays the
     head once, the trial while the search's ``go`` holds (at most
     ``MAX_LINESEARCH_STEPS`` times) and the tail once, and moves each
-    graph's recorded launches to the counters once per play: B1 4 times per
+    graph's recorded launches to the counters once per play: B1 once per
     loss evaluation (the head's and every trial's) and the line-search step
     once per trial. Each read of ``go`` is a ``go`` host wait of the
     recorder (none after a search's last permitted trial), and the phases
@@ -679,7 +679,7 @@ def test_zoom_replay_counts_launches_per_evaluation():
 
     phases._update = type("Update", (), {"search": type("Search", (), {"go": go})})()
     runner = S._Runner(phases.step_, "lbfgs-zoom", phases=phases)
-    runner._graphs = [(Graph("head"), (4, 0, 0, 0)), (Graph("trial", trial), (4, 0, 0, 1)),
+    runner._graphs = [(Graph("head"), (1, 0, 0, 0)), (Graph("trial", trial), (1, 0, 0, 1)),
                       (Graph("tail"), (0, 0, 0, 0))]
     runner._loss = torch.tensor(2.5)
     losses, played, start = torch.zeros(3), [], S._launch_counts()
@@ -694,7 +694,7 @@ def test_zoom_replay_counts_launches_per_evaluation():
         assert phases.trials == 3 + 1 + Z.MAX_LINESEARCH_STEPS
         evals = 3 + 3 + 1 + Z.MAX_LINESEARCH_STEPS
         got = tuple(a - b for a, b in zip(S._launch_counts(), start))
-        assert got == (4 * evals, 0, 0, evals - 3)
+        assert got == (evals, 0, 0, evals - 3)
         assert losses.tolist() == [2.5] * 3
     finally:
         S._add_launches(tuple(b - a for a, b in zip(S._launch_counts(), start)))
