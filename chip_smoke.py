@@ -1896,8 +1896,6 @@ def _graph_phase():
     from style_transfer_tpu_torch.bench import build_step
 
     device = torch.device(DEVICE)
-    makers = {"adam": S.make_adam_runner, "lbfgs": S.make_lbfgs_runner,
-              "lbfgs-zoom": S.make_lbfgs_zoom_runner}
     legs = [(opt, grad, prec, GRAPH_SIZES) for opt, grad, prec in (
         ("adam", "trace", "f32"), ("adam", "lyap", "f32"), ("lbfgs", "lyap", "f32"),
         ("lbfgs-zoom", "trace", "f32"), ("adam", "trace", "bf16"))]
@@ -1912,8 +1910,7 @@ def _graph_phase():
             lbfgs = optimizer != "adam"
             if lbfgs:
                 state0 = gray_start(state0, optimizer)
-            make = makers[optimizer]
-            eager = make(graph.cfg, eager=True)
+            eager = S.OPTIMIZERS[optimizer].runner(graph.cfg, eager=True)
             # cuDNN's default algorithms: agreement within CPU_RTOL, timings.
             g_state, g_loss, g_ms, g_peak, g_launch, g_steps = _run_timed(
                 graph, params, consts, state0)

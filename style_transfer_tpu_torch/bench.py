@@ -30,43 +30,24 @@ import numpy as np
 import torch
 
 from .engine import _resolve_compute_dtype, use_expandable_segments
-from .models.vgg import cast_params, extract_features, fp32_math
+from .models.vgg import cast_params, fp32_math
 from .models.weights import params_from_jax, random_params
-from .ops import losses as L
-from .step import (
-    LoopState,
-    StepConfig,
-    adam_init,
-    lbfgs_init,
-    make_adam_runner,
-    make_lbfgs_runner,
-    make_lbfgs_zoom_runner,
-    zoom_lbfgs_init,
-)
+from .parallel.checks import problem
+from .step import OPTIMIZERS, LoopState, StepConfig, capture_targets
 from .utils.ema import ema_init
 
 __all__ = ["BASELINE_512_ITS", "build_step", "main"]
 
 BASELINE_512_ITS = 26.7  # RTX 3090 equivalent (the JAX package's bench.py)
 
-_OPTIMIZERS = {
-    "adam": (make_adam_runner, adam_init),
-    "lbfgs": (make_lbfgs_runner, lbfgs_init),
-    "lbfgs-zoom": (make_lbfgs_zoom_runner, zoom_lbfgs_init),
-}
-
-
-def _nchw(arr, device):
-    return torch.from_numpy(arr).permute(0, 3, 1, 2).contiguous().to(device)
-
 
 def build_step(h, w, *, device="cuda:0", w2_grad="trace", compute_dtype="auto",
                optimizer="adam", seed=0, eager=False, remat=False, **cfg_kw):
     """The step at (h, w) and its inputs, as ``__graft_entry__._build``
     makes them: a ``RandomState(seed)`` image and content of (h, w) and a
-    64x64 style (drawn in that order, NHWC), ``random_params(0)``, the
-    content features at the content layers and a ``w2_target`` per style
-    layer, the optimizer's initial state and an EMA of decay 0.99.
+    64x64 style (``parallel.checks.problem``), ``random_params(0)``, the
+    targets (``step.capture_targets``), the initial state of
+    ``step.OPTIMIZERS[optimizer]`` and an EMA of decay 0.99.
     ``remat`` and ``cfg_kw`` go to ``StepConfig`` (``remat=True``
     rematerialises the trunk). The runner runs with TF32 off, as
     ``stylize`` does, and is the one the engine takes on ``device``: on the
@@ -84,30 +65,19 @@ def build_step(h, w, *, device="cuda:0", w2_grad="trace", compute_dtype="auto",
         if not torch.cuda.is_available():
             raise RuntimeError(f"device {str(device)!r} requested but CUDA is not available")
         use_expandable_segments()
-    make_runner, opt_init = _OPTIMIZERS[optimizer]
+    spec = OPTIMIZERS[optimizer]
     cfg = StepConfig(w2_grad=w2_grad, compute_dtype=_resolve_compute_dtype(compute_dtype),
                      remat=remat, **cfg_kw)
     params = params_from_jax(random_params(0), device)
     if cfg.compute_dtype is not None:
         params = cast_params(params, cfg.compute_dtype)
-    rng = np.random.RandomState(seed)
-    image = _nchw(rng.rand(1, h, w, 3).astype(np.float32), device)
-    content = _nchw(rng.rand(1, h, w, 3).astype(np.float32), device)
-    style = _nchw(rng.rand(1, 64, 64, 3).astype(np.float32), device)
+    image, content, style = (torch.from_numpy(a).permute(0, 3, 1, 2).contiguous().to(device)
+                             for a in problem({"hw": (h, w), "seed": seed}))
 
-    with fp32_math(device), torch.no_grad():
-        cf = extract_features(params, content, cfg.content_layers, pooling=cfg.pooling,
-                              compute_dtype=cfg.compute_dtype)
-        sf = extract_features(params, style, cfg.style_layers, pooling=cfg.pooling,
-                              compute_dtype=cfg.compute_dtype)
-        style_consts = {}
-        for layer in cfg.style_layers:
-            mean, srm = L.w2_moments(sf[layer])
-            style_consts[layer] = (L.w2_target(mean, srm, cfg.w2_eps, cfg.sqrtm_iters)
-                                   if cfg.style_loss == "w2" else srm)
-    consts = {"content": {l: cf[l] for l in cfg.content_layers}, "style": style_consts}
-    state = LoopState(image=image, opt=opt_init(image), ema=ema_init(image, 0.99))
-    run = make_runner(cfg, eager=eager)
+    with fp32_math(device):
+        consts = capture_targets(cfg, params, content, [(style, 1.0)])
+    state = LoopState(image=image, opt=spec.init(image), ema=ema_init(image, 0.99))
+    run = spec.runner(cfg, eager=eager)
 
     def runner(params, consts, state, n_steps):
         with fp32_math(device):

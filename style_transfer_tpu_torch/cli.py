@@ -157,6 +157,8 @@ def build_parser(stylize_fn):
         formatter_class=argparse.ArgumentDefaultsHelpFormatter,
     )
 
+    from .step import OPTIMIZERS
+
     defaults = stylize_fn.__kwdefaults__
     types = stylize_fn.__annotations__
 
@@ -183,7 +185,7 @@ def build_parser(stylize_fn):
     p.add_argument("--tv-weight", "-tw", **arg_info("tv_weight"),
                    help="the smoothing weight")
     p.add_argument("--optimizer", **arg_info("optimizer"),
-                   choices=["adam", "lbfgs", "lbfgs-zoom"],
+                   choices=list(OPTIMIZERS),
                    help="the optimizer to use (lbfgs = the reference's "
                         "fixed-step flavor; lbfgs-zoom adds a zoom "
                         "linesearch)")

@@ -50,13 +50,15 @@ With ``STT_DEBUG_TIMING`` set each phase's time is printed as it ends, and
 each scale's section times of the step (``step._Runner.section_ms``) at
 its end.
 
-The runners (``step.py``) write the state's tensors in place, and on the
-card replay one CUDA graph per scale over them, so the engine copies what
-must outlive a chunk: the checkpoint snapshot is copied on the device at
-submit, and the memoized host image is keyed on a count of chunks, not on
-the EMA state (the same tensors every chunk). At a scale's end it reads
-the final state, then drops the runner, its buffers, its graph and the
-graph's memory pool before the next scale allocates.
+What differs between the optimizers is ``step.OPTIMIZERS``; a scale's
+entry is ``_enter_scale``. The runners (``step.py``) write the state's
+tensors in place, and on the card replay CUDA graphs captured once per
+scale over them, so the engine copies what must outlive a chunk: the
+checkpoint snapshot is copied on the device at submit, and the memoized
+host image is keyed on a count of chunks, not on the EMA state (the same
+tensors every chunk). At a scale's end it reads the final state, then
+drops the runner, its buffers, its graphs and their memory pool before
+the next scale allocates.
 """
 
 import math
@@ -67,12 +69,10 @@ from typing import Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from PIL import Image
 
 from .models import weights as W
-from .models.vgg import cast_params, extract_features, fp32_math
-from .ops import losses as L
+from .models.vgg import cast_params, fp32_math
 from .parallel.mesh import (
     all_reduce_,
     any_rank_stops,
@@ -82,17 +82,12 @@ from .parallel.mesh import (
     shard_image,
 )
 from .step import (
-    AdamState,
-    LBFGSState,
+    OPTIMIZERS,
     LoopState,
     StepConfig,
-    adam_init,
+    _resize_image,
     build_loss_terms_fn,
-    lbfgs_init,
-    make_adam_runner,
-    make_lbfgs_runner,
-    make_lbfgs_zoom_runner,
-    zoom_lbfgs_init,
+    capture_targets,
 )
 from .utils import trace as T
 from .utils.checkpoint import AsyncCheckpointWriter, load_checkpoint, unpack_rng_state
@@ -121,21 +116,6 @@ def _pil_to_nchw(image: Image.Image, size=None, device="cpu"):
     return (x.permute(2, 0, 1)[None].to(torch.float32) / 255.0).contiguous()
 
 
-def _resize_image(x, hw, method: str = "bicubic"):
-    """Resize NCHW ``x`` to (h, w) as the reference does at each crossing
-    (``F.interpolate``, align_corners=False, no antialias); the JAX package's
-    ``ops/resize.py`` exists to equal this call."""
-    return F.interpolate(x, size=tuple(hw), mode=method, align_corners=False)
-
-
-def _scale_adam(opt: AdamState, hw) -> AdamState:
-    """Warm-start Adam moments at a new resolution (reference :285-295):
-    first moment resized bicubic, second moment bilinear then clamped >= 0."""
-    mu = _resize_image(opt.mu, hw, "bicubic")
-    nu = torch.clamp(_resize_image(opt.nu, hw, "bilinear"), min=0.0)
-    return AdamState(mu=mu, nu=nu, count=opt.count)
-
-
 def _to_nhwc(x):
     """NCHW (or (m, N, C, H, W)) tensor -> the checkpoint's channels-last
     layout, as a view."""
@@ -149,17 +129,6 @@ def _from_nhwc(arr, device):
     return x.movedim(-1, -3).contiguous().to(device)
 
 
-# Peak device memory allocated per pixel by the graphed step without remat,
-# by optimizer and trunk dtype (None: FP32), at 2896x2172 with one style:
-# `tools/remat_memory_torch.py sizes=2172x2896 precisions=f32,bf16
-# optimizers=adam,lbfgs,lbfgs-zoom remat=off` on an NVIDIA H100 80GB HBM3
-# at a 700 W power limit (PERF.md §6). The engine's one-scale runs at
-# 31.6-66.4 Mpx allocated within 0.4% of these per pixel.
-NO_REMAT_BYTES_PER_PIXEL = {
-    "adam": {None: 1818.0, torch.bfloat16: 1150.0},
-    "lbfgs": {None: 2298.0, torch.bfloat16: 1630.0},
-    "lbfgs-zoom": {None: 2334.0, torch.bfloat16: 1666.0},
-}
 # remat=None rematerialises a scale whose predicted no-remat peak exceeds
 # this share of the device's memory; the rest holds the CUDA context and
 # the slack of the graphs' private pools (fixed segments). With expandable
@@ -186,11 +155,11 @@ def use_expandable_segments():
 def predicted_peak_bytes(h: int, w: int, compute_dtype=None, mesh=None,
                          optimizer: str = "adam") -> float:
     """The predicted peak device memory of the step without remat on an h x
-    w canvas: of its largest slab under a ``mesh`` (ranks that share one
-    device are not summed)."""
+    w canvas (``step.OPTIMIZERS``' bytes a pixel): of its largest slab under
+    a ``mesh`` (ranks that share one device are not summed)."""
     if mesh is not None:
         h, w = largest_slab(h, w, mesh)
-    return NO_REMAT_BYTES_PER_PIXEL[optimizer][compute_dtype] * h * w
+    return OPTIMIZERS[optimizer].no_remat_bytes_per_pixel[compute_dtype] * h * w
 
 
 def auto_remat(h: int, w: int, compute_dtype=None, total_memory=None, mesh=None,
@@ -473,57 +442,26 @@ class StyleTransfer:
         x = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.float32))
         return x.permute(0, 3, 1, 2).contiguous().to(self.device)
 
-    @torch.no_grad()
     def _capture_targets(self, content, style_images, style_weights, scale,
                          style_scale_fac, style_size, cfg):
-        """Per-scale content/style targets (once per scale), with the trunk in
-        the step's dtype; the statistics are FP32."""
-        params = self._step_params()
-        with span("  targets:content-feats", self.device):
-            content_feats = extract_features(
-                params, content, self.content_layers, pooling=self.pooling,
-                compute_dtype=cfg.compute_dtype, mesh=self._scale_mesh)
-        consts = {
-            "content": {l: content_feats[l] for l in self.content_layers},
-            "style": {},
-        }
-        blended = {}
-        for img, wgt in zip(style_images, style_weights):
-            if style_size is None:
-                sw, sh = size_to_fit(img.size, round(scale * style_scale_fac))
-            else:
-                sw, sh = size_to_fit(img.size, style_size)
-            print(f"Processing style image ({sw}x{sh})...")
-            style = _pil_to_nchw(img, (sw, sh), self.device)
-            with span("  targets:style-stats", self.device):
-                feats = extract_features(
-                    params, style, self.style_layers, pooling=self.pooling,
-                    compute_dtype=cfg.compute_dtype)
-                for layer in self.style_layers:
-                    mean, srm = L.w2_moments(feats[layer])
-                    stats = (mean, srm) if cfg.style_loss == "w2" else (srm,)
-                    contrib = [s * wgt for s in stats]
-                    if layer not in blended:
-                        blended[layer] = contrib
-                    else:
-                        blended[layer] = [b + c for b, c in zip(blended[layer], contrib)]
-        with span("  targets:finalize", self.device):
-            for layer in self.style_layers:
-                if cfg.style_loss == "w2":
-                    mean, srm = blended[layer]
-                    consts["style"][layer] = L.w2_target(
-                        mean, srm, cfg.w2_eps, cfg.sqrtm_iters)
+        """The scale's targets (``step.capture_targets``, each stage a
+        ``  targets:*`` span) from the style images sized for ``scale``.
+        Under a mesh rank 0's style targets are taken, so that the ranks'
+        losses agree bit for bit."""
+
+        def styles():
+            for img, weight in zip(style_images, style_weights):
+                if style_size is None:
+                    sw, sh = size_to_fit(img.size, round(scale * style_scale_fac))
                 else:
-                    consts["style"][layer] = blended[layer][0]
-                if self.mesh is not None:
-                    # Every rank computes the targets from the same whole
-                    # style image; rank 0's are taken, so the losses agree
-                    # bit for bit.
-                    t = consts["style"][layer]
-                    consts["style"][layer] = (
-                        type(t)(*map(broadcast, t)) if isinstance(t, tuple)
-                        else broadcast(t))
-        return consts
+                    sw, sh = size_to_fit(img.size, style_size)
+                print(f"Processing style image ({sw}x{sh})...")
+                yield _pil_to_nchw(img, (sw, sh), self.device), weight
+
+        return capture_targets(
+            cfg, self._step_params(), content, styles(), self._scale_mesh,
+            spans=lambda name: span(f"  targets:{name}", self.device),
+            share=None if self.mesh is None else _broadcast_target)
 
     # --------------------------------------------------------------- stylize
 
@@ -570,20 +508,64 @@ class StyleTransfer:
         )
         return resume_state
 
-    def _restored_opt(self, resume_state, optimizer):
-        """The optimizer state of a checkpoint, NCHW on the device (this
-        rank's slab of it under a mesh)."""
-        if optimizer == "adam":
-            return AdamState(
-                mu=self._shard(_from_nhwc(resume_state["adam_mu"], self.device)),
-                nu=self._shard(_from_nhwc(resume_state["adam_nu"], self.device)),
-                count=int(resume_state["adam_count"]))
-        fields = {}
-        for name in LBFGSState._fields:
-            arr = resume_state[f"lbfgs_{name}"]
-            fields[name] = (self._shard(_from_nhwc(arr, self.device)) if arr.ndim >= 4
-                            else torch.from_numpy(np.array(arr)).to(self.device))
-        return LBFGSState(**fields)
+    def _from_file(self, arr):
+        """A checkpoint's array as a tensor on the device: an image-shaped
+        one NCHW (this rank's slab of it under a mesh)."""
+        if arr.ndim >= 4:
+            return self._shard(_from_nhwc(arr, self.device))
+        return torch.from_numpy(np.array(arr)).to(self.device)
+
+    def _enter_scale(self, scale, content_image, style_images, style_weights, whole, *,
+                     optimizer="adam", content_weight=0.015, tv_weight=2.0,
+                     step_size=0.02, avg_decay=0.99, style_scale_fac=1.0,
+                     style_size=None, align=None, carried=None, resume_state=None):
+        """A scale's entry, with ``stylize``'s keywords: sets the scale's
+        mesh, ``image`` (``whole`` resized and clamped, or the resume file's)
+        and ``average``, and returns ((w, h), ``StepConfig``, targets, the
+        runner's first state, runner). The optimizer state is the file's,
+        ``carried`` carried into the scale, or new (``step.OPTIMIZERS``)."""
+        spec = OPTIMIZERS[optimizer]
+        with span(f"scale-entry@{scale}", self.device):
+            cw, ch = self.canvas(content_image.size, scale, align)
+            self._scale_mesh = None if self.mesh is None else self.mesh.on_canvas(ch, cw)
+            content = self._shard(_pil_to_nchw(content_image, (cw, ch), self.device))
+            if resume_state is None:
+                self.image = self._shard(torch.clamp(_resize_image(whole, (ch, cw)), 0.0, 1.0))
+                self._set_average(ema_init(self.image, avg_decay))
+            else:
+                self.image = self._shard(whole)
+                self._set_average(EMAState(
+                    value=self._from_file(resume_state["ema_value"]),
+                    accum=self._from_file(resume_state["ema_accum"])))
+            layers = len(self.content_layers)
+            cfg = StepConfig(
+                content_layers=tuple(self.content_layers), style_layers=tuple(self.style_layers),
+                content_weights=(content_weight / layers,) * layers,
+                style_layer_weights=tuple(self.style_layer_weights), tv_weight=tv_weight,
+                style_loss=self.style_loss, content_loss=self.content_loss,
+                w2_grad=self.w2_grad, pooling=self.pooling, step_size=step_size,
+                avg_decay=avg_decay, compute_dtype=self.compute_dtype,
+                remat=self._scale_remat(ch, cw, optimizer))
+
+        print(f"Processing content image ({cw}x{ch})...")
+        with span(f"targets@{scale}", self.device):
+            consts = self._capture_targets(content, style_images, style_weights, scale,
+                                           style_scale_fac, style_size, cfg)
+        self._last_cfg, self._last_consts = cfg, consts
+
+        with span(f"scale-entry@{scale}", self.device):
+            if resume_state is not None:
+                opt = spec.unpack(resume_state, self._from_file)
+            elif carried is None:
+                opt = spec.init(self.image)
+            else:
+                opt = _map_images(self._shard, spec.carry(carried, (ch, cw)))
+            runner = spec.runner(cfg, self._scale_mesh)
+            runner.label = f"@{scale}"
+            # The runner copies the state into buffers of its own (and hands
+            # those back) at its first call.
+            state = LoopState(image=self.image, opt=opt, ema=self.average)
+        return (cw, ch), cfg, consts, state, runner
 
     def stylize(
         self,
@@ -609,14 +591,16 @@ class StyleTransfer:
         checkpoint_every: int = 500,
         resume: bool = False,
     ):
-        if optimizer not in _RUNNERS:
-            raise ValueError("optimizer must be one of 'adam', 'lbfgs', 'lbfgs-zoom'")
+        spec = OPTIMIZERS.get(optimizer)
+        if spec is None:
+            raise ValueError("optimizer must be one of " + ", ".join(map(repr, OPTIMIZERS)))
+        job = dict(optimizer=optimizer, content_weight=content_weight, tv_weight=tv_weight,
+                   step_size=step_size, avg_decay=avg_decay,
+                   style_scale_fac=style_scale_fac, style_size=style_size, align=align)
         with fp32_math(self.device):
             # From the call to the first scale: the inputs, the initial image.
             with span("prologue", self.device):
                 min_scale = min(min_scale, end_scale)
-                content_weights = [content_weight / len(self.content_layers)] * len(
-                    self.content_layers)
                 if style_weights is None:
                     style_weights = [1 / len(style_images)] * len(style_images)
                 else:
@@ -646,86 +630,29 @@ class StyleTransfer:
                 # is a copy made on the device at submit: what the writer
                 # fetches is the state of the snapshot's iteration even while
                 # the next chunks run.
-                if checkpoint is not None and optimizer == "lbfgs-zoom":
+                checkpointing = checkpoint is not None and spec.checkpoint is not None
+                if checkpoint is not None and not checkpointing:
+                    written = " and ".join(k for k, v in OPTIMIZERS.items() if v.checkpoint)
                     print(
-                        "Warning: --checkpoint supports the adam and lbfgs "
+                        f"Warning: --checkpoint supports the {written} "
                         "optimizers; no checkpoints will be written for this "
-                        "lbfgs-zoom run (its optax state is not serialized)."
+                        f"{optimizer} run (its optax state is not serialized)."
                     )
-                checkpointing = checkpoint is not None and optimizer != "lbfgs-zoom"
             ckpt_writer = (AsyncCheckpointWriter() if checkpointing and self._is_rank0
                            else None)
             iters_since_ckpt = 0
             try:
-                opt_state = None
-                for scale_idx, scale in enumerate(scales):
-                    if scale_idx < start_scale_idx:
-                        continue
+                carried = None
+                for scale_idx in range(start_scale_idx, len(scales)):
+                    scale = scales[scale_idx]
                     resuming_here = (resume_state is not None
                                      and scale_idx == start_scale_idx)
-                    with span(f"scale-entry@{scale}", self.device):
-                        cw, ch = self.canvas(content_image.size, scale, align)
-                        self._scale_mesh = (None if self.mesh is None
-                                            else self.mesh.on_canvas(ch, cw))
-                        content = self._shard(
-                            _pil_to_nchw(content_image, (cw, ch), self.device))
-                        if resuming_here:
-                            self.image = self._shard(whole)
-                            self._set_average(EMAState(
-                                value=self._shard(
-                                    _from_nhwc(resume_state["ema_value"], self.device)),
-                                accum=torch.from_numpy(
-                                    np.array(resume_state["ema_accum"])).to(self.device),
-                            ))
-                        else:
-                            self.image = self._shard(torch.clamp(
-                                _resize_image(whole, (ch, cw)), 0.0, 1.0))
-                            self._set_average(ema_init(self.image, avg_decay))
-
-                        cfg = StepConfig(
-                            content_layers=tuple(self.content_layers),
-                            style_layers=tuple(self.style_layers),
-                            content_weights=tuple(content_weights),
-                            style_layer_weights=tuple(self.style_layer_weights),
-                            tv_weight=tv_weight,
-                            style_loss=self.style_loss,
-                            content_loss=self.content_loss,
-                            w2_grad=self.w2_grad,
-                            pooling=self.pooling,
-                            step_size=step_size,
-                            avg_decay=avg_decay,
-                            compute_dtype=self.compute_dtype,
-                            remat=self._scale_remat(ch, cw, optimizer),
-                        )
-                        actual_its = (initial_iterations if scale == scales[0]
-                                      else iterations)
-
-                    print(f"Processing content image ({cw}x{ch})...")
-                    with span(f"targets@{scale}", self.device):
-                        consts = self._capture_targets(
-                            content, style_images, style_weights, scale, style_scale_fac,
-                            style_size, cfg)
-                    self._last_cfg, self._last_consts = cfg, consts
-
-                    with span(f"scale-entry@{scale}", self.device):
-                        if resuming_here:
-                            opt_state = self._restored_opt(resume_state, optimizer)
-                        elif optimizer == "adam":
-                            opt_state = (adam_init(self.image) if opt_state is None
-                                         else AdamState(*map(self._shard, _scale_adam(
-                                             opt_state, (ch, cw))[:2]), opt_state.count))
-                        elif optimizer == "lbfgs":
-                            # A fresh state at every scale, as the JAX engine.
-                            opt_state = lbfgs_init(self.image)
-                        else:
-                            opt_state = zoom_lbfgs_init(self.image)
-                        runner = _RUNNERS[optimizer](cfg, self._scale_mesh)
-                        runner.label = f"@{scale}"
-                        # The runner copies the state into buffers of its own
-                        # (and hands those back): the engine's optimizer
-                        # state is not needed past this point.
-                        state = LoopState(image=self.image, opt=opt_state, ema=self.average)
-                        opt_state = None
+                    (cw, ch), _, consts, state, runner = self._enter_scale(
+                        scale, content_image, style_images, style_weights, whole,
+                        carried=carried, resume_state=resume_state if resuming_here else None,
+                        **job)
+                    carried = None
+                    actual_its = initial_iterations if scale == scales[0] else iterations
 
                     reset_peak_device_ram(self.device)
                     done = (min(resume_state["done_iters"], actual_its)
@@ -791,14 +718,13 @@ class StyleTransfer:
                               + ", ".join(f"{k} {v:.3f}" for k, v in sections.items()),
                               flush=True)
                     # Each new scale starts from the previous scale's averaged
-                    # iterate (ref :495-497); Adam's moments are carried over
-                    # whole, to be resized. Then the runner, its graph and
-                    # the buffers no longer needed go.
+                    # iterate (ref :495-497); an optimizer state that carries
+                    # into the next scale (Adam's moments) is taken whole, to
+                    # be resized. Then the runner, its graphs and the buffers
+                    # no longer needed go.
                     with span(f"scale-exit@{scale}", self.device):
-                        opt_state = None
-                        if optimizer == "adam":
-                            opt_state = AdamState(self._whole(state.opt.mu),
-                                                  self._whole(state.opt.nu), state.opt.count)
+                        if spec.carry is not None:
+                            carried = _map_images(self._whole, state.opt)
                         self.image = torch.clamp(ema_get(state.ema), 0.0, 1.0)
                         self.average = state.ema
                         whole = self._whole(self.image)
@@ -820,12 +746,7 @@ class StyleTransfer:
         mesh every rank gathers the whole state and rank 0, the only one
         with a writer, submits it."""
         whole = self._whole
-        if optimizer == "adam":
-            opt = {"adam": AdamState(mu=whole(state.opt.mu), nu=whole(state.opt.nu),
-                                     count=state.opt.count)}
-        else:
-            opt = {"lbfgs": LBFGSState(*(whole(f) if f.ndim >= 4 else f
-                                         for f in state.opt))}
+        opt = _map_images(whole, state.opt)
         image, ema_value = whole(state.image), whole(state.ema.value)
         if writer is None:
             return
@@ -835,7 +756,7 @@ class StyleTransfer:
                 return x
             return _to_nhwc(x).contiguous() if x.ndim >= 4 else x.clone()
 
-        opt = {k: type(v)(*map(snap, v)) for k, v in opt.items()}
+        opt = type(opt)(*map(snap, opt))
         if writer.error is not None:
             print(f"Warning: checkpoint write failed: {writer.error}")
             writer.error = None
@@ -851,12 +772,20 @@ class StyleTransfer:
             meta={"w": cw, "h": ch, "scale": scale, "transposed": False},
             optimizer=optimizer,
             rng=rng,
-            **opt,
+            **{OPTIMIZERS[optimizer].checkpoint: opt},
         )
 
 
-_RUNNERS = {"adam": make_adam_runner, "lbfgs": make_lbfgs_runner,
-            "lbfgs-zoom": make_lbfgs_zoom_runner}
+def _map_images(fn, opt):
+    """An optimizer state with ``fn`` applied to its image-shaped tensors
+    (4-D or more: images, and histories of them), the rest as it is."""
+    return type(opt)(*(fn(f) if isinstance(f, torch.Tensor) and f.ndim >= 4 else f
+                       for f in opt))
+
+
+def _broadcast_target(t):
+    """Rank 0's style target (a ``W2Target`` or a Gram matrix) on every rank."""
+    return type(t)(*map(broadcast, t)) if isinstance(t, tuple) else broadcast(t)
 
 
 def tensor_to_image(arr, image_type: str = "pil"):

@@ -221,21 +221,18 @@ def w2_loss_from_moments(mean, srm, target: W2Target, eps: float = 1e-4,
     return mean_diff + torch.mean(cov_diff)
 
 
-def w2_losses_batched(means, covs, target: W2Target, sqrtm_iters: int = 12,
-                      sqrtm_fn=None, trace_sqrtm_fn=None):
-    """Per-element W2 losses for a stacked group of layers with equal C.
+def w2_losses_batched(means, covs, target: W2Target, sqrtm_iters: int = 12):
+    """Per-element W2 losses for a stacked group of layers with equal C,
+    through the full square root of the dispatching Lyapunov-backward NS.
 
     Args: means (G, C); covs (G, C, C) already +eps*I; target fields stacked
-    along G. Returns (G,) losses. With ``trace_sqrtm_fn`` the sqrt term is
-    computed as a trace directly (analytic ½·A^{-1/2} backward); otherwise
-    ``sqrtm_fn`` (default: the dispatching Lyapunov-backward NS) gives the
-    full matrix.
+    along G. Returns (G,) losses. The trace path (analytic ½·A^{-1/2}
+    backward) is :func:`w2_inner`, a trace of the square root, then
+    :func:`w2_losses_from_trace`.
     """
     inner = w2_inner(covs, target)
-    if trace_sqrtm_fn is not None:
-        return w2_losses_from_trace(means, covs, target, trace_sqrtm_fn(inner, sqrtm_iters))
     mean_diff = torch.mean((means - target.mean) ** 2, dim=-1)
-    sqrt_term = (sqrtm_fn or sqrtm_ns_lyap)(inner, sqrtm_iters)
+    sqrt_term = sqrtm_ns_lyap(inner, sqrtm_iters)
     cov_diff = _trace(target.cov + covs - 2.0 * sqrt_term) / covs.shape[-1]
     return mean_diff + cov_diff
 

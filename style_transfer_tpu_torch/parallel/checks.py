@@ -12,7 +12,7 @@ the processes the launcher starts import torch only.
 
 A spec is a dict: ``hw`` (the canvas), and optionally ``seed`` (1),
 ``cfg`` (``StepConfig`` keyword arguments), ``steps`` (0), ``optimizer``
-('adam' or 'lbfgs') and ``init`` ('gray': the engine's gray init, drawn from
+(a name of ``step.OPTIMIZERS``, 'adam') and ``init`` ('gray': the engine's gray init, drawn from
 the image's numbers).
 """
 
@@ -21,11 +21,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..models.vgg import extract_features
 from ..models.weights import params_from_jax, random_params
-from ..ops import losses as L
-from ..step import (LoopState, StepConfig, adam_init, build_loss_fn,
-                    build_loss_terms_fn, lbfgs_init, make_adam_runner, make_lbfgs_runner)
+from ..step import (OPTIMIZERS, LoopState, StepConfig, build_loss_fn, build_loss_terms_fn,
+                    capture_targets)
 from ..utils.ema import ema_init
 from .mesh import gather_image, shard_image
 
@@ -67,16 +65,7 @@ def run(spec, mesh=None, device="cpu"):
         for a in problem(spec))
     m = None if mesh is None else mesh.on_canvas(*spec["hw"])
     x0 = shard_image(image, m)
-    with torch.no_grad():
-        cf = extract_features(params, shard_image(content, m), cfg.content_layers,
-                              pooling=cfg.pooling, mesh=m)
-        sf = extract_features(params, style, cfg.style_layers, pooling=cfg.pooling)
-    style_consts = {}
-    for layer in cfg.style_layers:
-        mean, srm = L.w2_moments(sf[layer])
-        style_consts[layer] = (L.w2_target(mean, srm, cfg.w2_eps)
-                               if cfg.style_loss == "w2" else srm)
-    consts = {"content": {l: cf[l] for l in cfg.content_layers}, "style": style_consts}
+    consts = capture_targets(cfg, params, shard_image(content, m), [(style, 1.0)], m)
 
     x = x0.clone().requires_grad_(True)
     loss = build_loss_fn(cfg, m)(x, params, consts)
@@ -87,11 +76,9 @@ def run(spec, mesh=None, device="cpu"):
            "terms": torch.stack([terms[k] for k in sorted(terms)])}
     steps = spec.get("steps", 0)
     if steps:
-        adam = spec.get("optimizer", "adam") == "adam"
-        runner = (make_adam_runner if adam else make_lbfgs_runner)(cfg, m)
-        opt = adam_init(x0) if adam else lbfgs_init(x0)
-        state = LoopState(image=x0, opt=opt, ema=ema_init(x0, cfg.avg_decay))
-        state, losses = runner(params, consts, state, steps)
+        optimizer = OPTIMIZERS[spec.get("optimizer", "adam")]
+        state = LoopState(image=x0, opt=optimizer.init(x0), ema=ema_init(x0, cfg.avg_decay))
+        state, losses = optimizer.runner(cfg, m)(params, consts, state, steps)
         out["losses"] = losses
         out["image"] = gather_image(state.image, m)
     return {k: v.detach().cpu().numpy() for k, v in out.items()}

@@ -1,5 +1,6 @@
-"""The optimization step: the W2/content/TV objective, the Adam runner, the
-reference L-BFGS runner and the L-BFGS runner with a zoom line search.
+"""The optimization step: the W2/content/TV objective and its targets, the
+Adam runner, the reference L-BFGS runner, the L-BFGS runner with a zoom
+line search, and ``OPTIMIZERS``, the table of the three.
 
 Port of the monolithic path of ``style_transfer_tpu/step.py``: the loss is
 the VGG forward, per-layer moments -> covariance, the square-root term of
@@ -15,31 +16,34 @@ once per chunk: Adam is gradient (image only), Adam, clamp to [0, 1], EMA;
 L-BFGS is gradient, a fixed-step L-BFGS update with no clamp, EMA; L-BFGS
 with the zoom line search is gradient, the L-BFGS direction and a line
 search along it (up to 20 trials, each a loss evaluation and one step of
-the search's device state), no clamp, EMA. On one card every runner runs
-each iteration as replays of CUDA graphs captured once per runner (once
-per scale in the engine; :class:`_Runner`), the port of the JAX runners'
-compiled chunk: Adam's and L-BFGS's step is one graph, the zoom iteration
-three (its head, one trial replayed while the search goes on, its tail);
-elsewhere the body runs eagerly. The runner's warm-up and capture are spans
-of the recorder (``utils/trace.py``), and the Adam and L-BFGS step times
-its sections (forward, loss, backward, update) inside its graph
+the search's device state), no clamp, EMA. Each body is given as its parts
+and a schedule that plays them (:class:`_Body`): Adam's and L-BFGS's one
+part once, the zoom iteration's three (its head, one trial played while the
+search goes on, its tail). On one card every runner plays each part as the
+replay of a CUDA graph captured once per runner (once per scale in the
+engine; :class:`_Runner`), the port of the JAX runners' compiled chunk;
+elsewhere it calls them. The runner's warm-up and capture are spans of the
+recorder (``utils/trace.py``), and the Adam and L-BFGS step times its
+sections (forward, loss, backward, update) inside its graph
 (:class:`_Sections`); the zoom runner times its trial graph the same way,
 records each read of the search's ``go`` as a host wait and counts the
 trials of each call (the ``zoom-trials`` counter).
 """
 
+import contextlib
 import functools
 from dataclasses import dataclass
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .models.vgg import INPUT, extract_features
 from .ops import losses as L
 from .ops.cuda import ns_sqrtm as K
 from .ops.cuda import zoom_ls as ZL
-from .ops.cuda.ns_sqrtm import sqrtm_ns_lyap, trace_sqrtm_ns_groups
+from .ops.cuda.ns_sqrtm import trace_sqrtm_ns_groups
 from .parallel.mesh import all_reduce_
 from .utils import trace as T
 from .utils.ema import EMAState, ema_update_
@@ -47,11 +51,14 @@ from .zoom_lbfgs import (
     MAX_LINESEARCH_STEPS,
     ZoomLBFGSState,
     ZoomLBFGSUpdate,
+    _vdot,
     run_trials,
     zoom_lbfgs_init,
 )
 
 __all__ = [
+    "OPTIMIZERS",
+    "Optimizer",
     "StepConfig",
     "AdamState",
     "LBFGSState",
@@ -60,6 +67,7 @@ __all__ = [
     "adam_init",
     "build_loss_fn",
     "build_loss_terms_fn",
+    "capture_targets",
     "lbfgs_init",
     "lbfgs_step",
     "make_adam_runner",
@@ -186,8 +194,7 @@ def build_loss_fn(cfg: StepConfig, mesh=None, mark=None):
             losses_of = [L.w2_losses_from_trace(means, covs, target, tr)
                          for (means, covs, target, _), tr in zip(stacked, traces)]
         else:
-            losses_of = [L.w2_losses_batched(means, covs, target, cfg.sqrtm_iters,
-                                             sqrtm_fn=sqrtm_ns_lyap)
+            losses_of = [L.w2_losses_batched(means, covs, target, cfg.sqrtm_iters)
                          for means, covs, target, _ in stacked]
         total = 0.0
         for (_, _, _, weights), losses in zip(stacked, losses_of):
@@ -256,6 +263,50 @@ def build_loss_terms_fn(cfg: StepConfig, mesh=None):
     return terms
 
 
+@torch.no_grad()
+def capture_targets(cfg: StepConfig, params, content, styles, mesh=None, *, spans=None,
+                    share=None):
+    """The ``consts`` of :func:`build_loss_fn`, the trunk in
+    ``cfg.compute_dtype`` and the statistics in FP32: ``content``'s features
+    (its slab's under a ``mesh``), and at each style layer the statistics of
+    the (whole NCHW style image, weight) pairs of ``styles``, blended over
+    (mean, second raw moment) and made a ``W2Target`` or a Gram matrix.
+    ``spans(name)`` is entered around the stages ``content-feats``,
+    ``style-stats`` (an image) and ``finalize``; ``share`` takes each style
+    target (the engine's broadcast from rank 0)."""
+    scope = spans or (lambda name: contextlib.nullcontext())
+    with scope("content-feats"):
+        content_feats = extract_features(
+            params, content, cfg.content_layers, pooling=cfg.pooling,
+            compute_dtype=cfg.compute_dtype, mesh=mesh)
+    consts = {"content": {l: content_feats[l] for l in cfg.content_layers}, "style": {}}
+    blended = {}
+    for style, weight in styles:
+        with scope("style-stats"):
+            feats = extract_features(params, style, cfg.style_layers, pooling=cfg.pooling,
+                                     compute_dtype=cfg.compute_dtype)
+            for layer in cfg.style_layers:
+                mean, srm = L.w2_moments(feats[layer])
+                stats = [s * weight for s in ((mean, srm) if cfg.style_loss == "w2" else (srm,))]
+                blended[layer] = ([b + c for b, c in zip(blended[layer], stats)]
+                                  if layer in blended else stats)
+    with scope("finalize"):
+        for layer in cfg.style_layers:
+            if cfg.style_loss == "w2":
+                target = L.w2_target(*blended[layer], cfg.w2_eps, cfg.sqrtm_iters)
+            else:
+                (target,) = blended[layer]
+            consts["style"][layer] = target if share is None else share(target)
+    return consts
+
+
+def _resize_image(x, hw, method: str = "bicubic"):
+    """Resize NCHW ``x`` to (h, w) as the reference does at each crossing
+    (``F.interpolate``, align_corners=False, no antialias); the JAX package's
+    ``ops/resize.py`` exists to equal this call."""
+    return F.interpolate(x, size=tuple(hw), mode=method, align_corners=False)
+
+
 def adam_init(image) -> AdamState:
     return AdamState(mu=torch.zeros_like(image), nu=torch.zeros_like(image), count=0)
 
@@ -285,6 +336,19 @@ def _adam_apply(cfg: StepConfig, opt: AdamState, g):
     bc1, bc2 = adam_bias_corrections(cfg, count)
     update = cfg.step_size * (mu / bc1) / (torch.sqrt(nu / bc2) + cfg.adam_eps)
     return update, AdamState(mu=mu, nu=nu, count=count)
+
+
+def _adam_carry(opt: AdamState, hw) -> AdamState:
+    """Warm-start Adam moments at a new resolution (reference :285-295):
+    first moment resized bicubic, second moment bilinear then clamped >= 0."""
+    mu = _resize_image(opt.mu, hw, "bicubic")
+    nu = torch.clamp(_resize_image(opt.nu, hw, "bilinear"), min=0.0)
+    return AdamState(mu=mu, nu=nu, count=opt.count)
+
+
+def _adam_unpack(arrays, tensor) -> AdamState:
+    return AdamState(mu=tensor(arrays["adam_mu"]), nu=tensor(arrays["adam_nu"]),
+                     count=int(arrays["adam_count"]))
 
 
 def _write_(dst, src):
@@ -319,7 +383,7 @@ def _value_and_grad(loss_fn, params, consts):
 
 class _Sections:
     """Marks that split a captured part into sections, one more mark than
-    ``names``. The step body's (:func:`_make_step`) are five, ``NAMES``:
+    ``names``. The one-part step body's (:class:`_Step`) are five, ``NAMES``:
     ``forward`` (the trunk with the moments at its taps), ``loss`` (the W2
     terms with the NS chain, content, TV), ``backward`` (the image's
     gradient, with remat's recompute) and ``update`` (the optimizer, clamp,
@@ -359,34 +423,85 @@ class _Sections:
                 for name, a, b in zip(self.names, self.events, self.events[1:])}
 
 
-def _make_step(cfg: StepConfig, apply, mesh=None):
-    """Returns the in-place step body ``step_(params, consts, static) ->
-    (static, loss)``: loss and gradient (image only) at ``static.image`` ->
-    ``apply(opt, image, g) -> (image, opt)`` -> EMA, the new state written
-    into ``static``'s own tensors; and its :class:`_Sections`."""
-    sections = _Sections()
-    loss_fn = build_loss_fn(cfg, mesh, sections.mark)
+class _Body:
+    """A step body as :class:`_Runner` runs it: its :meth:`parts` and
+    :meth:`iterate`, the schedule that runs an iteration by playing them
+    (``play(i)``). ``loss`` is the loss the parts last made. Around them
+    the runner calls :meth:`load` (the state it holds for one it is
+    handed), :meth:`begin` and :meth:`end` (the state it hands back) around
+    a call and :meth:`after` each iteration. This base plays its one part
+    once an iteration and holds the caller's optimizer state as it is."""
 
-    def step_(params, consts, static: LoopState):
-        sections.mark(0)
-        loss, g = _value_and_grad(loss_fn, params, consts)(static.image)
-        sections.mark(3)
-        image, opt = apply(static.opt, static.image, g)
-        ema_update_(static.ema, image, cfg.avg_decay)
-        opt = _write_(static.opt, opt)
+    linesearch_steps = None
+
+    def iterate(self, play):
+        play(0)
+
+    def load(self, opt, device):
+        return opt
+
+    def begin(self, n_steps: int, device):
+        pass
+
+    def after(self, k: int, static: LoopState):
+        pass
+
+    def end(self, opt, n_steps: int):
+        return opt
+
+
+class _Step(_Body):
+    """The one-part body: loss and gradient (image only) at
+    ``static.image`` -> ``apply(opt, image, g) -> (image, opt)`` -> EMA,
+    the new state written into ``static``'s own tensors."""
+
+    def __init__(self, cfg: StepConfig, apply, mesh=None):
+        self.sections = _Sections()
+        self._loss_fn = build_loss_fn(cfg, mesh, self.sections.mark)
+        self._apply, self._decay, self.loss = apply, cfg.avg_decay, None
+
+    def parts(self, params, consts, static: LoopState):
+        return [lambda: self.step_(params, consts, static)]
+
+    def step_(self, params, consts, static: LoopState):
+        self.sections.mark(0)
+        self.loss, g = _value_and_grad(self._loss_fn, params, consts)(static.image)
+        self.sections.mark(3)
+        image, opt = self._apply(static.opt, static.image, g)
+        ema_update_(static.ema, image, self._decay)
+        _write_(static.opt, opt)
         static.image.copy_(image)
-        sections.mark(4)
-        return static._replace(opt=opt), loss
-
-    return step_, sections
+        self.sections.mark(4)
 
 
-def runs_as_graph(device, optimizer: str, mesh=None) -> bool:
+class _AdamStep(_Step):
+    """Adam's body: gradient -> Adam -> clamp to [0, 1] -> EMA. The count is
+    a host int in the caller's state and a float32 0-d device tensor in the
+    runner's, so that each replay of a graph counts on."""
+
+    def __init__(self, cfg: StepConfig, mesh=None):
+        def apply(opt, image, g):
+            update, opt = _adam_apply(cfg, opt, g)
+            return torch.clamp(image - update, 0.0, 1.0), opt
+
+        super().__init__(cfg, apply, mesh)
+        self._count = None
+
+    def load(self, opt: AdamState, device):
+        self._count = int(opt.count)
+        return opt._replace(count=torch.full((), float(opt.count), dtype=torch.float32,
+                                             device=device))
+
+    def end(self, opt: AdamState, n_steps: int):
+        self._count += n_steps
+        return opt._replace(count=self._count)
+
+
+def runs_as_graph(device, mesh=None) -> bool:
     """The runners' path choice, by the path alone: on a CUDA device with no
-    mesh, every runner (``adam``, ``lbfgs``, ``lbfgs-zoom``) runs each
-    iteration as a replay of a captured CUDA graph. A mesh (gloo stages the
-    halos through host memory) and the CPU run eagerly."""
-    del optimizer  # every optimizer takes the same path
+    mesh, every runner runs each iteration as replays of captured CUDA
+    graphs. A mesh (gloo stages the halos through host memory) and the CPU
+    run eagerly."""
     return torch.device(device).type == "cuda" and mesh is None
 
 
@@ -407,19 +522,17 @@ def _add_launches(counts, times: int = 1):
     ZL.ls_step_.launches += times * counts[3]
 
 
-class _ZoomPhases:
-    """The zoom runner's step, in the three parts the graph runner captures
-    and replays apart: :meth:`head` (loss and gradient at the iterate, the
-    L-BFGS direction, the line search's start: :class:`ZoomLBFGSUpdate`),
-    :meth:`trial` (one trial, run while the search's ``go`` holds:
-    :meth:`run_trials`) and :meth:`tail` (the accepted step, the state
-    written, EMA). :meth:`step_` runs them eagerly, in the same order. What
-    one part hands the next (the direction, the search's state) stays
-    referenced here, so the graphs' shared pool keeps it. The optimizer
-    state is written before the image: it keeps the previous iterate, the
-    image itself. A trial's two marks (``sections``, :class:`_Sections`)
-    time it inside its graph; ``trials`` counts the trials run since the
-    runner last set it to 0."""
+class _ZoomPhases(_Body):
+    """The zoom runner's body in three parts: :meth:`head` (loss and
+    gradient at the iterate, the L-BFGS direction, the line search's start:
+    :class:`ZoomLBFGSUpdate`), :meth:`trial` and :meth:`tail` (the accepted
+    step, the state written, EMA); an iteration plays the head, the trial
+    while the search's ``go`` holds (:func:`run_trials`), the tail. What one
+    part hands the next stays referenced here, so the graphs' shared pool
+    keeps it. The optimizer state is written before the image: it keeps the
+    previous iterate, the image itself. ``sections`` time a trial; each call
+    records its ``trials`` as the counter ``zoom-trials``, and each
+    iteration's line-search evaluations in ``linesearch_steps``."""
 
     def __init__(self, cfg: StepConfig, mesh=None):
         self._loss_fn, self._decay = build_loss_fn(cfg, mesh), cfg.avg_decay
@@ -427,27 +540,36 @@ class _ZoomPhases:
         self.loss = self._update = None
         self.sections, self.trials = _Sections(("trial",)), 0
 
+    def parts(self, params, consts, static: LoopState):
+        return [lambda: self.head(params, consts, static), lambda: self.trial(),
+                lambda: self.tail(static)]
+
+    def iterate(self, play):
+        play(0)
+        self.trials += run_trials(lambda: play(1), self._update.search.go, self.max_steps)
+        play(2)
+
+    def begin(self, n_steps: int, device):
+        self.trials = 0
+        self.linesearch_steps = torch.empty(n_steps, dtype=torch.int32, device=device)
+
+    def after(self, k: int, static: LoopState):
+        self.linesearch_steps[k] = static.opt.linesearch_steps
+
+    def end(self, opt, n_steps: int):
+        T.counter("zoom-trials", self.trials)
+        return opt
+
     def head(self, params, consts, static: LoopState):
         value_and_grad = _value_and_grad(self._loss_fn, params, consts)
         self.loss, g = value_and_grad(static.image)
         self._update = ZoomLBFGSUpdate(static.opt, static.image, self.loss, g,
                                        value_and_grad, self.max_steps, self._mesh)
 
-    @property
-    def go(self):
-        return self._update.search.go
-
     def trial(self):
         self.sections.mark(0)
         self._update.search.trial()
         self.sections.mark(1)
-
-    def run_trials(self, trial) -> int:
-        """``trial`` (:meth:`trial`, or the replay of its graph) run by
-        :func:`run_trials`, and counted; returns how many ran."""
-        n = run_trials(trial, self.go, self.max_steps)
-        self.trials += n
-        return n
 
     def tail(self, static: LoopState):
         image, opt = self._update.result()
@@ -455,154 +577,128 @@ class _ZoomPhases:
         _write_(static.opt, opt)
         static.image.copy_(image)
 
-    def step_(self, params, consts, static: LoopState):
-        self.head(params, consts, static)
-        self.run_trials(self.trial)
-        self.tail(static)
-        return static, self.loss
-
 
 class _Runner:
     """``run(params, consts, state, n_steps) -> (state, losses)``: ``n_steps``
-    iterations of a step body (:func:`_make_step`; the zoom runner's is
-    :meth:`_ZoomPhases.step_`), the per-iteration
-    losses in an (n_steps,) float32 tensor on the image's device. For
-    ``lbfgs-zoom``, ``linesearch_steps`` is then the chunk's line-search
-    evaluations per iteration, an (n_steps,) int32 tensor on that device.
+    iterations of a step body (:class:`_Body`), the per-iteration losses in
+    an (n_steps,) float32 tensor on the image's device. For ``lbfgs-zoom``,
+    ``linesearch_steps`` is then the chunk's line-search evaluations per
+    iteration, an (n_steps,) int32 tensor on that device.
 
     The runner keeps the state in buffers of its own, which every
     iteration writes in place; the state handed back holds those buffers
-    (Adam's count is a device tensor inside and the host int ``count + n``
-    outside), and passing it back continues from them. Any other state is
-    copied into new buffers (and the graphs are captured anew over them),
-    so the caller's tensors are never written.
+    (:meth:`_Body.end`), and passing it back continues from them. Any other
+    state is copied into new buffers (and the graphs are captured anew over
+    them), so the caller's tensors are never written.
 
-    On the CPU, under a mesh, or with ``eager`` (a caller's comparison),
-    each iteration runs the body eagerly. Otherwise (:func:`runs_as_graph`)
-    the runner is the port of the JAX package's ``jit`` over ``lax.scan``
-    with the state donated: the first iteration on new buffers runs eagerly
-    on a side stream (it is a real iteration, and it builds what is made
-    lazily on the device: the ImageNet constants, the kernels' one-time
-    attribute setup, cuDNN's algorithm choice, cuBLAS's workspace), the
-    next is captured once over the buffers, params and consts, in a memory
-    pool of its own, and every iteration from then on replays it, its loss
-    copied into the chunk's losses after it. Adam's and L-BFGS's step is
-    one CUDA graph. The zoom iteration (``phases``, :class:`_ZoomPhases`)
-    is three graphs in one pool, one for each of its parts; a replay runs
-    them as the eager body does: the head, the trial while the search's
-    ``go`` says so (:func:`run_trials`), the tail. The host reads one bool
-    per trial and nothing else. (The JAX runner's whole search runs on
-    the device; CUDA graphs' conditional nodes would do that here, but
-    PyTorch 2.11 does not expose them to Python.) With ``StepConfig.remat``
-    the trunk's recompute runs inside the captured backward. The
-    allocator's cached blocks are released before a capture (the warm-up
-    iteration's), so warm-up and capture do not hold two iterations'
-    memory at once. A capture or
-    replay that fails raises. The kernels' launch counts
-    (``ops/cuda/ns_sqrtm.py``, ``ops/cuda/zoom_ls.py``) count each replay's
-    launches (a capture's own are taken back).
+    Every path runs the body's schedule; only what a play does differs. On
+    the CPU, under a mesh, or with ``eager`` (a caller's comparison), it
+    calls the part. Otherwise (:meth:`graphed`) the runner is the port of
+    the JAX package's ``jit`` over ``lax.scan`` with the state donated: the
+    first iteration on new buffers calls the parts on a side stream (it is
+    a real iteration, and it builds what is made lazily on the device: the
+    ImageNet constants, the kernels' one-time attribute setup, cuDNN's
+    algorithm choice, cuBLAS's workspace), the next captures each part as a
+    CUDA graph over the buffers, params and consts, all in one memory pool
+    of their own, and from then on a play replays the part's graph. The
+    zoom iteration's host reads one bool per trial and nothing else. (The
+    JAX runner's whole search runs on the device; CUDA graphs' conditional
+    nodes would do that here, but PyTorch 2.11 does not expose them to
+    Python.) With ``StepConfig.remat`` the trunk's recompute runs inside
+    the captured backward. The allocator's cached blocks are released
+    before a capture, so warm-up and capture do not hold two iterations'
+    memory at once. A capture or replay that fails raises. The kernels'
+    launch counts (``ops/cuda/ns_sqrtm.py``, ``ops/cuda/zoom_ls.py``) count
+    each play of a graph as its capture's launches (the capture's own are
+    taken back).
 
     The warm-up iteration and the capture are spans of the recorder
     (``utils/trace.py``), ``  warm-up`` and ``  capture`` followed by
     ``label`` (the engine's ``@S``), and the synchronize before a capture
     is a ``host_wait``; ``capture_seconds`` is the last capture span's
-    seconds. The Adam and L-BFGS step carries its :class:`_Sections`
-    (``sections``), the zoom runner its trial's, whose events the capture
-    puts in the graph: :meth:`section_ms` reads the last replay's, and while
-    a profiler runs the runner records them in the recorder at its next
-    call, and when the recorder is read, stamped with that replay's launch.
-    The zoom runner also records each read of ``go`` as a ``host_wait``
-    (:func:`run_trials`) and, at the end of each call, the counter
-    ``zoom-trials``: the trials that call ran."""
+    seconds. The body's :class:`_Sections` (``sections``) put their events
+    in the graphs: :meth:`section_ms` reads the last replay's, and while a
+    profiler runs the runner records them in the recorder at its next call,
+    and when the recorder is read, stamped with that replay's launch."""
 
-    def __init__(self, step, optimizer: str, mesh=None, eager: bool = False,
-                 phases: _ZoomPhases = None, sections: _Sections = None):
-        self._step, self._optimizer, self._mesh = step, optimizer, mesh
-        self._eager, self._phases, self.sections = eager, phases, sections
-        self._static = self._handed = self._inputs = self._count = None
-        self._graphs = self._loss = None
+    def __init__(self, body: _Body, mesh=None, eager: bool = False):
+        self._body, self._mesh, self._eager = body, mesh, eager
+        self.sections = body.sections
+        self._static = self._handed = self._inputs = self._graphs = None
         self._warm = False
         self._stamp = self._sampled = None  # the last replay's launch, and the last sampled
-        self.capture_seconds = self.linesearch_steps = None
+        self.capture_seconds = None
         self.label = ""
 
+    @property
+    def linesearch_steps(self):
+        return self._body.linesearch_steps
+
+    def graphed(self, device) -> bool:
+        """Whether this runner replays graphs on ``device``."""
+        return not self._eager and runs_as_graph(device, self._mesh)
+
     def __call__(self, params, consts, state: LoopState, n_steps: int):
-        if self.sections is not None:
-            self.sections.fired = []
-            if torch._C._autograd._profiler_enabled():
-                self._sample()
-                T.RECORDER.set_sampler(self._sample)
+        body = self._body
+        self.sections.fired = []
+        if torch._C._autograd._profiler_enabled():
+            self._sample()
+            T.RECORDER.set_sampler(self._sample)
         if state is not self._handed:
             self._load(state)
         if self._inputs is None or any(a is not b for a, b in zip(self._inputs,
                                                                   (params, consts))):
-            self._graphs = self._loss = None  # the graphs hold the old ones
+            self._graphs = None  # the graphs hold the old ones
             self._inputs = (params, consts)
         device = self._static.image.device
-        graphed = not self._eager and runs_as_graph(device, self._optimizer, self._mesh)
+        graphed = self.graphed(device)
         losses = torch.empty(n_steps, dtype=torch.float32, device=device)
-        zoom = self._phases is not None
-        steps = torch.empty(n_steps, dtype=torch.int32, device=device) if zoom else None
-        if zoom:
-            self._phases.trials = 0
+        parts = body.parts(params, consts, self._static)
+        body.begin(n_steps, device)
         for k in range(n_steps):
             if not graphed:
-                self._static, losses[k] = self._step(params, consts, self._static)
+                body.iterate(lambda i: parts[i]())
+                losses[k] = body.loss
             elif self._graphs is not None:
                 self._replay(losses, k)
             elif self._warm:
-                self._capture(params, consts, device)
+                self._capture(parts, device)
                 self._replay(losses, k)
             else:
                 with T.span(f"  warm-up{self.label}"):
-                    self._warm_up(params, consts, losses, k, device)
-            if zoom:
-                steps[k] = self._static.opt.linesearch_steps
-        if zoom:
-            T.counter("zoom-trials", self._phases.trials)
-        if self._count is not None:
-            self._count += n_steps
+                    self._warm_up(parts, losses, k, device)
+            body.after(k, self._static)
         s = self._static
-        self._handed = (s if self._count is None
-                        else s._replace(opt=s.opt._replace(count=self._count)))
-        self.linesearch_steps = steps
+        self._handed = s._replace(opt=body.end(s.opt, n_steps))
         return self._handed, losses
 
     def _load(self, state: LoopState):
-        opt, self._count = state.opt, None
-        if isinstance(opt, AdamState):
-            self._count = int(opt.count)
-            opt = opt._replace(count=torch.full((), float(opt.count), dtype=torch.float32,
-                                                device=state.image.device))
-        self._graphs = self._loss = self._stamp = None
+        self._graphs = self._stamp = None
         self._warm = False
-        self._static = _clone(state._replace(opt=opt))
+        self._static = _clone(state._replace(
+            opt=self._body.load(state.opt, state.image.device)))
 
     def section_ms(self):
         """{section: ms} of the last graph replay (waiting for it to end),
-        or None where no replay of sections ran."""
-        return None if self._stamp is None or self.sections is None else self.sections.ms()
+        or None where no replay ran."""
+        return None if self._stamp is None else self.sections.ms()
 
     def _sample(self):
         """Records the last replay's sections in the recorder, once."""
-        if self._stamp != self._sampled and self.sections is not None:
+        if self._stamp != self._sampled:
             T.RECORDER.sample("sections", self._stamp, self.sections.ms())
             self._sampled = self._stamp
 
-    def _warm_up(self, params, consts, losses, k, device):
+    def _warm_up(self, parts, losses, k, device):
         stream, main = _capture_stream(device), torch.cuda.current_stream(device)
         stream.wait_stream(main)
         with torch.cuda.stream(stream):
-            self._static, losses[k] = self._step(params, consts, self._static)
+            self._body.iterate(lambda i: parts[i]())
+            losses[k] = self._body.loss
         main.wait_stream(stream)
         self._warm = True
 
-    def _capture(self, params, consts, device):
-        static, z = self._static, self._phases
-        if z is None:
-            parts = [lambda: self._step(params, consts, static)[1]]
-        else:
-            parts = [lambda: z.head(params, consts, static), z.trial, lambda: z.tail(static)]
+    def _capture(self, parts, device):
         with T.host_wait("capture-sync"):
             torch.cuda.synchronize(device)
         # The eager first iteration leaves its blocks in the allocator's
@@ -613,8 +709,7 @@ class _Runner:
         torch.cuda.empty_cache()
         graphs, pool = [], None
         with T.span(f"  capture{self.label}") as span:
-            if self.sections is not None:
-                self.sections.arm()
+            self.sections.arm()
             for part in parts:
                 graph, before = torch.cuda.CUDAGraph(), _launch_counts()
                 # thread_local: the checkpoint writer and the image saver may
@@ -622,45 +717,31 @@ class _Runner:
                 # "global" forbids.
                 with torch.cuda.graph(graph, pool=pool, stream=_capture_stream(device),
                                       capture_error_mode="thread_local"):
-                    out = part()
+                    part()
                 # The capture launched nothing: its counts move to the replays.
                 recorded = tuple(a - b for a, b in zip(_launch_counts(), before))
                 _add_launches(recorded, -1)
                 graphs.append((graph, recorded))
                 pool = graph.pool()
-            if self.sections is not None:
-                self.sections.recording = False
+            self.sections.recording = False
         self.capture_seconds = (span.end_ns - span.start_ns) / 1e9
-        self._loss = out if z is None else z.loss
         self._graphs = graphs
 
     def _replay(self, losses, k):
-        def play(part):
-            graph, recorded = part
+        def play(i):
+            graph, recorded = self._graphs[i]
             graph.replay()
             _add_launches(recorded)
 
-        if self._phases is None:
-            play(self._graphs[0])
-        else:  # the zoom iteration: its head, the trials, its tail
-            head, trial, tail = self._graphs
-            play(head)
-            self._phases.run_trials(lambda: play(trial))
-            play(tail)
+        self._body.iterate(play)
         self._stamp = T.now_ns()
-        losses[k] = self._loss
+        losses[k] = self._body.loss
 
 
 def make_adam_runner(cfg: StepConfig, mesh=None, *, eager: bool = False):
     """The Adam runner (see :class:`_Runner`): gradient -> Adam -> clamp to
     [0, 1] -> EMA, all elementwise (each rank updates its own slab)."""
-
-    def apply(opt, image, g):
-        update, opt = _adam_apply(cfg, opt, g)
-        return torch.clamp(image - update, 0.0, 1.0), opt
-
-    step_, sections = _make_step(cfg, apply, mesh)
-    return _Runner(step_, "adam", mesh, eager, sections=sections)
+    return _Runner(_AdamStep(cfg, mesh), mesh, eager)
 
 
 class LBFGSState(NamedTuple):
@@ -703,11 +784,6 @@ def lbfgs_init(image, memory_size: int = _LBFGS_MEMORY) -> LBFGSState:
         h_diag=scalar(1.0, torch.float32),
         n_iter=scalar(0, torch.int32),
     )
-
-
-def _vdot(a, b, mesh=None):
-    """Inner product of two images (of their slabs, summed over the ranks)."""
-    return all_reduce_(torch.dot(a.reshape(-1), b.reshape(-1)), mesh)
 
 
 def _lbfgs_direction(state: LBFGSState, g, lr: float, mesh=None):
@@ -796,10 +872,14 @@ def make_lbfgs_runner(cfg: StepConfig, mesh=None, *, eager: bool = False):
     Python lists, whose host-side decisions would sync the stream every
     iteration.
     """
-    sharded = {} if mesh is None else {"mesh": mesh}  # the one-device call as before
-    step_, sections = _make_step(
-        cfg, lambda opt, image, g: lbfgs_step(opt, image, g, lr=1.0, **sharded), mesh)
-    return _Runner(step_, "lbfgs", mesh, eager, sections=sections)
+    def apply(opt, image, g):
+        return lbfgs_step(opt, image, g, lr=1.0, mesh=mesh)
+
+    return _Runner(_Step(cfg, apply, mesh), mesh, eager)
+
+
+def _lbfgs_unpack(arrays, tensor) -> LBFGSState:
+    return LBFGSState(*(tensor(arrays[f"lbfgs_{name}"]) for name in LBFGSState._fields))
 
 
 def make_lbfgs_zoom_runner(cfg: StepConfig, mesh=None, *, eager: bool = False):
@@ -810,6 +890,36 @@ def make_lbfgs_zoom_runner(cfg: StepConfig, mesh=None, *, eager: bool = False):
     ``cfg.step_size`` ignored, as the JAX runner. As there, the loss and
     gradient at each iterate are computed anew, not taken from the line
     search's last trial, so the evaluations equal the reference's."""
-    phases = _ZoomPhases(cfg, mesh)
-    return _Runner(phases.step_, "lbfgs-zoom", mesh, eager, phases=phases,
-                   sections=phases.sections)
+    return _Runner(_ZoomPhases(cfg, mesh), mesh, eager)
+
+
+class Optimizer(NamedTuple):
+    """What differs between the program's optimizers."""
+
+    init: Callable  # image -> the state a scale starts from
+    runner: Callable  # (cfg, mesh=None, *, eager=False) -> its _Runner
+    # (state, (h, w)) -> the next scale's state from a scale's last, its
+    # image-shaped tensors whole; None: every scale starts from ``init``
+    carry: Optional[Callable]
+    # save_checkpoint's keyword for the state and its keys' prefix in the
+    # file (None: no checkpoint is written), and (arrays, tensor) -> the
+    # state from a file's arrays, ``tensor`` putting each on the device
+    checkpoint: Optional[str]
+    unpack: Optional[Callable]
+    no_remat_bytes_per_pixel: dict  # {trunk dtype (None: FP32): bytes a pixel}
+
+
+# The optimizers the CLI offers, by name. The bytes a pixel are the peak
+# device memory allocated by the graphed step without remat at 2896x2172
+# with one style: `tools/remat_memory_torch.py sizes=2172x2896
+# precisions=f32,bf16 optimizers=adam,lbfgs,lbfgs-zoom remat=off` on an
+# NVIDIA H100 80GB HBM3 at a 700 W power limit (PERF.md §6). The engine's
+# one-scale runs at 31.6-66.4 Mpx allocated within 0.4% of these per pixel.
+OPTIMIZERS = {
+    "adam": Optimizer(adam_init, make_adam_runner, _adam_carry, "adam", _adam_unpack,
+                      {None: 1818.0, torch.bfloat16: 1150.0}),
+    "lbfgs": Optimizer(lbfgs_init, make_lbfgs_runner, None, "lbfgs", _lbfgs_unpack,
+                       {None: 2298.0, torch.bfloat16: 1630.0}),
+    "lbfgs-zoom": Optimizer(zoom_lbfgs_init, make_lbfgs_zoom_runner, None, None, None,
+                            {None: 2334.0, torch.bfloat16: 1666.0}),
+}

@@ -82,6 +82,7 @@ def zoom_lbfgs_init(params: torch.Tensor, memory_size: int = MEMORY_SIZE) -> Zoo
 
 
 def _vdot(a, b, mesh=None):
+    """Inner product of two images (of their slabs, summed over the ranks)."""
     return all_reduce_(torch.dot(a.reshape(-1), b.reshape(-1)), mesh)
 
 

@@ -30,6 +30,7 @@ from style_transfer_tpu_torch import StyleTransfer
 from style_transfer_tpu_torch import step as S
 from style_transfer_tpu_torch.ops.cuda import ns_sqrtm as K
 from style_transfer_tpu_torch.parallel import checks
+from style_transfer_tpu_torch.parallel.mesh import Mesh
 from style_transfer_tpu_torch.utils import checkpoint as ckmod
 
 torch.set_num_threads(2)
@@ -87,10 +88,9 @@ def _port_problem(optimizer, w2_grad):
         sf = extract_features(params, style, cfg.style_layers)
     consts = {"content": {l: cf[l] for l in cfg.content_layers},
               "style": {l: L.w2_target(*L.w2_moments(sf[l])) for l in cfg.style_layers}}
-    make, init = ((S.make_adam_runner, S.adam_init) if optimizer == "adam"
-                  else (S.make_lbfgs_runner, S.lbfgs_init))
-    state = S.LoopState(image=image, opt=init(image), ema=ema_init(image, cfg.avg_decay))
-    return make(cfg), params, consts, state
+    spec = S.OPTIMIZERS[optimizer]
+    state = S.LoopState(image=image, opt=spec.init(image), ema=ema_init(image, cfg.avg_decay))
+    return spec.runner(cfg), params, consts, state
 
 
 @pytest.mark.parametrize("w2_grad", ["trace", "lyap"])
@@ -162,6 +162,31 @@ def test_runner_keeps_its_own_buffers():
     assert torch.equal(torch.cat([first, rest]), losses)
     for a, b in zip((end.image, end.opt.mu, end.opt.nu, *end.ema), one):
         assert torch.equal(a, b)
+
+
+def test_adam_carry_matches_jax_scale_adam():
+    """``OPTIMIZERS['adam'].carry``, the moments taken into the next scale,
+    against the JAX engine's ``_scale_adam`` on the same moments across a
+    sqrt(2) crossing (36x48 -> 51x68): the first moment bicubic, the second
+    bilinear and clamped at 0 (here it has negative entries, so the clamp
+    acts), the count kept as the host's int. JAX resizes by dense FP32
+    weight matrices, the port by ``F.interpolate``: within 1e-5 of each
+    moment's max (measured 3.6e-6 and 3.4e-6)."""
+    from style_transfer_tpu.engine import _scale_adam as jax_scale_adam
+
+    rng = np.random.RandomState(11)
+    mu, nu = rng.randn(2, 1, 36, 48, 3).astype(np.float32)
+    out = S.OPTIMIZERS["adam"].carry(
+        S.AdamState(*(torch.from_numpy(a).permute(0, 3, 1, 2) for a in (mu, nu)), 17),
+        (51, 68))
+    ref = jax_scale_adam(JSTEP.AdamState(jnp.asarray(mu), jnp.asarray(nu), 17), (51, 68))
+    assert out.count == 17 and isinstance(out.count, int)
+    assert float(out.nu.min()) == 0.0
+    for got, want in ((out.mu, ref.mu), (out.nu, ref.nu)):
+        want = np.asarray(want)
+        assert got.shape == (1, 3, 51, 68)
+        err = np.abs(got.permute(0, 2, 3, 1).numpy() - want).max() / np.abs(want).max()
+        assert err < 1e-5
 
 
 def _stylize(st, content, style, **kw):
@@ -239,10 +264,14 @@ def test_image_changes_every_chunk():
     ("cpu", "lbfgs-zoom", None, False),
 ])
 def test_path_choice(device, optimizer, mesh, graph):
-    """Graph replays on a CUDA device with no mesh, for every runner (the
-    zoom L-BFGS's iteration as three graphs); a mesh and the CPU run
-    eagerly."""
-    assert S.runs_as_graph(device, optimizer, mesh) is graph
+    """Graph replays on a CUDA device with no mesh, for the runner of every
+    entry of ``OPTIMIZERS`` (the zoom L-BFGS's iteration as three graphs);
+    a mesh and the CPU run eagerly, and so does a runner asked for
+    ``eager``."""
+    mesh = None if mesh is None else Mesh(grid=(2, 1), rank=0, device=torch.device("cpu"))
+    make = S.OPTIMIZERS[optimizer].runner
+    assert make(S.StepConfig(), mesh).graphed(torch.device(device)) is graph
+    assert make(S.StepConfig(), mesh, eager=True).graphed(torch.device(device)) is False
 
 
 def test_launch_counts_add_per_replay():

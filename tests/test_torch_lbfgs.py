@@ -123,9 +123,9 @@ def _engine_losses(optimizer="lbfgs", noise=0.0, **kw):
     gen = torch.Generator().manual_seed(0)
     step = S.lbfgs_step
 
-    def perturbed(state, image, g, lr):
+    def perturbed(state, image, g, lr, mesh=None):
         g = g * (1 + noise * torch.randn(g.shape, generator=gen))
-        return step(state, image, g, lr)
+        return step(state, image, g, lr, mesh)
 
     st = T.StyleTransfer(device="cpu", weights=PARAMS, callback_chunk=5)
     its = []

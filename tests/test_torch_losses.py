@@ -104,8 +104,9 @@ def test_w2_losses_batched_trace_path(c):
 
     def tloss(v):
         m, s = TL.w2_moments(v)
-        losses = TL.w2_losses_batched(m, TL.moments_to_cov(m, s), ttarget,
-                                      trace_sqrtm_fn=t_trace_sqrtm)
+        covs = TL.moments_to_cov(m, s)
+        tr = t_trace_sqrtm(TL.w2_inner(covs, ttarget), 12)
+        losses = TL.w2_losses_from_trace(m, covs, ttarget, tr)
         return torch.sum(losses * torch.from_numpy(w))
 
     _check(jloss, tloss, x)

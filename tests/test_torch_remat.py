@@ -20,12 +20,13 @@ from style_transfer_tpu.engine import auto_size_knobs
 from style_transfer_tpu.models.weights import random_params
 from style_transfer_tpu_torch import cli as tcli
 from style_transfer_tpu_torch.bench import build_step
-from style_transfer_tpu_torch.engine import (NO_REMAT_BYTES_PER_PIXEL, REMAT_MEMORY_SHARE,
-                                             auto_remat, predicted_peak_bytes)
+from style_transfer_tpu_torch.engine import (REMAT_MEMORY_SHARE, auto_remat,
+                                             predicted_peak_bytes)
 from style_transfer_tpu_torch.models.vgg import remat_segment_ends
 from style_transfer_tpu_torch.ops import losses as L
 from style_transfer_tpu_torch.parallel.mesh import Mesh
-from style_transfer_tpu_torch.step import StepConfig, build_loss_fn, build_loss_terms_fn
+from style_transfer_tpu_torch.step import (OPTIMIZERS, StepConfig, build_loss_fn,
+                                           build_loss_terms_fn)
 
 torch.set_num_threads(2)
 
@@ -133,7 +134,7 @@ def test_auto_rule():
     card = 80 * GIB
     # 2896x2172 runs without remat under every optimizer; 8192x6144 (50.3
     # Mpx) FP32 rematerialises.
-    for optimizer in NO_REMAT_BYTES_PER_PIXEL:
+    for optimizer in OPTIMIZERS:
         for dtype in (None, torch.bfloat16):
             assert not auto_remat(2172, 2896, dtype, card, optimizer=optimizer)
         assert auto_remat(6144, 8192, None, card, optimizer=optimizer)

@@ -653,49 +653,71 @@ def test_ls_kernel_matches_plain_on_card():
 
 # ------------------------------------------------------ the runner's record
 
-def test_zoom_replay_counts_launches_per_evaluation():
-    """A graph runner's zoom replay (``step._Runner._replay``) plays the
-    head once, the trial while the search's ``go`` holds (at most
-    ``MAX_LINESEARCH_STEPS`` times) and the tail once, and moves each
-    graph's recorded launches to the counters once per play: B1 once per
-    loss evaluation (the head's and every trial's) and the line-search step
-    once per trial. Each read of ``go`` is a ``go`` host wait of the
-    recorder (none after a search's last permitted trial), and the phases
-    count the trials. Graphs stand in as recorders; the searches want 3, 1
+@pytest.mark.parametrize("optimizer", list(S.OPTIMIZERS))
+def test_zoom_replay_counts_launches_per_evaluation(optimizer):
+    """The runner of each entry of ``OPTIMIZERS`` plays its body's parts in
+    the same order whether it calls them (the eager path, here on the CPU)
+    or replays their graphs (the path forced on, ``_Runner._replay``): the
+    one part of Adam's and L-BFGS's step once an iteration; for the zoom
+    L-BFGS the head once, the trial while the search's ``go`` holds (at
+    most ``MAX_LINESEARCH_STEPS`` times) and the tail once. Each play of a
+    graph moves its recorded launches to the counters: B1 once per loss
+    evaluation (the step's, the head's and every trial's) and the
+    line-search step once per trial. On both paths each read of ``go`` is a
+    ``go`` host wait of the recorder (none after a search's last permitted
+    trial), and each call records its trials as one ``zoom-trials``
+    counter. Parts and graphs stand in as recorders; the searches want 3, 1
     and 25 trials."""
     class Graph:
-        def __init__(self, name, then=None):
-            self.name, self.then = name, then
+        def __init__(self, play):
+            self.play = play
 
         def replay(self):
-            played.append(self.name)
-            if self.then:
-                self.then()
+            self.play()
 
-    phases, go, wants = S._ZoomPhases(S.StepConfig()), torch.tensor(True), [3, 1, 25]
+    spec = S.OPTIMIZERS[optimizer]
+    runner = spec.runner(S.StepConfig())
+    body, go, wants, played = runner._body, torch.tensor(True), [3, 1, 25], []
+    names = (["head", "trial", "tail"] if len(body.parts(None, None, None)) == 3
+             else ["step"])
 
-    def trial():  # the trials since the last head against this search's want
-        go.fill_(played[::-1].index("head") < wants[played.count("head") - 1])
+    def part(name):
+        def play():
+            played.append(name)
+            body.loss = torch.tensor(2.5)
+            if name == "trial":  # the trials since the last head against this search's want
+                go.fill_(played[::-1].index("head") < wants[played.count("head") - 1])
+        return play
 
-    phases._update = type("Update", (), {"search": type("Search", (), {"go": go})})()
-    runner = S._Runner(phases.step_, "lbfgs-zoom", phases=phases)
-    runner._graphs = [(Graph("head"), (1, 0, 0, 0)), (Graph("trial", trial), (1, 0, 0, 1)),
-                      (Graph("tail"), (0, 0, 0, 0))]
-    runner._loss = torch.tensor(2.5)
-    losses, played, start = torch.zeros(3), [], S._launch_counts()
-    first = TR.events()[-1].index if TR.events() else -1
+    body.parts = lambda params, consts, static: [part(n) for n in names]
+    body._update = type("Update", (), {"search": type("Search", (), {"go": go})})()
+    image = torch.zeros(1, 3, 4, 4)
+    state = S.LoopState(image=image, opt=spec.init(image), ema=ema_init(image, 0.99))
+    zoom = names == ["head", "trial", "tail"]
+    want = ([p for n in (3, 1, Z.MAX_LINESEARCH_STEPS)
+             for p in ["head"] + n * ["trial"] + ["tail"]] if zoom else ["step"] * 3)
+    recorded = {"head": (1, 0, 0, 0), "trial": (1, 0, 0, 1), "tail": (0, 0, 0, 0),
+                "step": (1, 0, 0, 0)}
+    start = S._launch_counts()
     try:
-        for k in range(3):
-            runner._replay(losses, k)
-        assert played == [p for n in (3, 1, Z.MAX_LINESEARCH_STEPS)
-                          for p in ["head"] + n * ["trial"] + ["tail"]]
-        reads = [e for e in TR.events() if e.index > first and e.kind == TR.HOST_WAIT]
-        assert [e.name for e in reads] == ["go"] * (3 + 1 + Z.MAX_LINESEARCH_STEPS - 1)
-        assert phases.trials == 3 + 1 + Z.MAX_LINESEARCH_STEPS
-        evals = 3 + 3 + 1 + Z.MAX_LINESEARCH_STEPS
-        got = tuple(a - b for a, b in zip(S._launch_counts(), start))
-        assert got == (evals, 0, 0, evals - 3)
-        assert losses.tolist() == [2.5] * 3
+        for graphed in (False, True):
+            if graphed:
+                runner._graphs = [(Graph(part(n)), recorded[n]) for n in names]
+                runner.graphed = lambda device: True
+            played.clear()
+            first = TR.events()[-1].index if TR.events() else -1
+            state, losses = runner(None, None, state, 3)
+            assert played == want
+            assert losses.tolist() == [2.5] * 3
+            new = [e for e in TR.events() if e.index > first]
+            reads = [e.name for e in new if e.kind == TR.HOST_WAIT]
+            trials = [e.value for e in new if e.kind == TR.COUNTER and e.name == "zoom-trials"]
+            n_trials = 3 + 1 + Z.MAX_LINESEARCH_STEPS if zoom else 0
+            assert reads == (["go"] * (n_trials - 1) if zoom else [])
+            assert trials == ([n_trials] if zoom else [])
+            evals = want.count("head") + want.count("trial") + want.count("step")
+            got = tuple(a - b for a, b in zip(S._launch_counts(), start))
+            assert got == ((evals, 0, 0, n_trials) if graphed else (0, 0, 0, 0))
     finally:
         S._add_launches(tuple(b - a for a, b in zip(S._launch_counts(), start)))
     assert S._launch_counts() == start

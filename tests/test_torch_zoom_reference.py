@@ -46,7 +46,7 @@ def _recording(step_run):
 
     def init(self, *args):
         step_run(self, *args)
-        phases, self.stepsizes, self.trials = self.runner.inner._phases, [], []
+        phases, self.stepsizes, self.trials = self.runner.inner._body, [], []
         tail = phases.tail
 
         def recorded_tail(static):

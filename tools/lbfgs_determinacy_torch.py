@@ -32,13 +32,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from style_transfer_tpu_torch.bench import build_step  # noqa: E402
-from style_transfer_tpu_torch.step import (  # noqa: E402
-    LoopState,
-    lbfgs_init,
-    make_lbfgs_runner,
-    make_lbfgs_zoom_runner,
-    zoom_lbfgs_init,
-)
+from style_transfer_tpu_torch.step import OPTIMIZERS, LoopState  # noqa: E402
 from style_transfer_tpu_torch.utils.ema import ema_init  # noqa: E402
 
 
@@ -47,8 +41,8 @@ def gray_start(state, optimizer="lbfgs"):
     the image's uniform draw over 255) and fresh EMA and optimizer states
     (``lbfgs`` or ``lbfgs-zoom``)."""
     image = state.image / 255.0 + 0.5
-    init = zoom_lbfgs_init if optimizer == "lbfgs-zoom" else lbfgs_init
-    return LoopState(image=image, opt=init(image), ema=ema_init(image, 0.99))
+    return LoopState(image=image, opt=OPTIMIZERS[optimizer].init(image),
+                     ema=ema_init(image, 0.99))
 
 
 def _rel(a, b):
@@ -57,7 +51,7 @@ def _rel(a, b):
 
 def measure(device="cuda:0", seeds=6, iters=10, sizes=((96, 128), (384, 512)),
             optimizer="lbfgs", w2_grad="lyap", inits=("uniform", "gray"), eager_runs=2):
-    make = {"lbfgs": make_lbfgs_runner, "lbfgs-zoom": make_lbfgs_zoom_runner}[optimizer]
+    make = OPTIMIZERS[optimizer].runner
     out = {}
     for init in inits:
         for h, w in sizes:

@@ -252,10 +252,8 @@ def profile(h, w, iters=20, top=30, **cfg):
     buckets, the top kernels and the top sources, and returns the summary,
     or None when no device kernel was seen. ``graph`` in the summary says
     whether the profiled runner replayed a CUDA graph."""
-    from style_transfer_tpu_torch.step import runs_as_graph
-
     device, (runner, params, consts, state) = _build(h, w, cfg)
-    graph = not cfg.get("eager") and runs_as_graph(device, cfg.get("optimizer", "adam"))
+    graph = runner.run.graphed(device)
     attribution = eager_attribution(h, w, **cfg) if graph else None
     state, _ = runner(params, consts, state, iters)
     _sync(device)
